@@ -157,10 +157,6 @@ class Matrix:
         single-RHS CSR operator does not serve."""
         dt = config.resolve_dtype(dtype)
         kind = self._op_kind(batch=batch)
-        if kind in ("dia", "ell"):
-            raise NotImplementedError(
-                f"the '{kind}' operator is not ported yet (ROADMAP queue 1, "
-                "item 2)")
         key = (str(dt), bool(transpose), kind)
         if key not in self._ops:
             with self._lock:
@@ -170,8 +166,14 @@ class Matrix:
                     from .formats.streaming import check_memory_budget
 
                     check_memory_budget(csr, kind, device=self.device)
-                    if kind == "dense":
+                    if kind == "dia":
+                        from .formats.dia import dia_from_csr
+
+                        self._ops[key] = dia_from_csr(csr, dt, self.device)
+                    elif kind == "dense":
                         self._ops[key] = _ell.dense_from_csr(csr, dt, self.device)
+                    elif kind == "ell":
+                        self._ops[key] = _ell.ell_from_csr(csr, dt, self.device)
                     else:
                         from .ops.csr_spmv import pack_csr
 

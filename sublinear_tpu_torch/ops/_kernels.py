@@ -79,6 +79,9 @@ def library() -> ctypes.CDLL:
             lib.slt_csr_spmv.restype = I
             lib.slt_neumann_step.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P]
             lib.slt_neumann_step.restype = I
+            lib.slt_cg_step.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P,
+                                        I, I, I, P, P]
+            lib.slt_cg_step.restype = I
             lib.slt_error_string.argtypes = [I]
             lib.slt_error_string.restype = ctypes.c_char_p
             _lib = lib

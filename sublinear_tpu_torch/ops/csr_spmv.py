@@ -13,10 +13,15 @@ Kernels (``csrc/csr_kernels.cu``, built by ``ops/_kernels.py``):
   ``csr_spmv``      y = R x (+ diag * x): replaces ``_fused_call`` and
                     ``_k1_call`` + ``_k2_call``;
   ``neumann_step``  one pass of ``_chain_call``; ``neumann_chain`` launches
-                    it ``iters`` times on the current stream.
+                    it ``iters`` times on the current stream;
+  ``cg_step``       one Jacobi-PCG step of ``_cg_chain_call`` (three
+                    launches: product and p.q, update and r.z, direction);
+                    ``cg_chain`` runs it ``iters`` times on the current
+                    stream.
 Each has a plain PyTorch version beside it (``csr_spmv_plain``,
-``neumann_chain_plain``).  A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+``neumann_chain_plain``, ``cg_chain_plain``).  A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts
+kernel launches (one ``cg_step`` count per CG step).
 """
 from __future__ import annotations
 
@@ -28,9 +33,10 @@ import torch
 from ..config import to_device
 from ..formats.csr import CSR
 
-LAUNCHES = {"csr_spmv": 0, "neumann_step": 0}
+LAUNCHES = {"csr_spmv": 0, "neumann_step": 0, "cg_step": 0}
 
 _INT32_LIMIT = 2**31
+TINY = 1e-30  # _cg_chain_call's guard on p.q and rz
 
 
 class CsrOperator:
@@ -121,9 +127,24 @@ class CsrOperator:
         return acc, term, out[2].to(dt)
 
     def cg_chain(self, x, r, p, rz, iters: int):
-        raise NotImplementedError(
-            "cg_chain (ops/xbar.py::_cg_chain_call) is not ported yet; it is "
-            "the next kernel in ROADMAP queue 2")
+        """Runs ``iters`` Jacobi-PCG iterations from the state (x, r, p, rz):
+        returns ``(x, r, p, rz, res2)`` with res2 = ||r||^2 of the final
+        iterate; ``rz`` and ``res2`` are 0-d f32 tensors on the operator's
+        device.  Seeding the next call with the returned state continues the
+        recurrence exactly (the chunked driver in solvers/cg.py).  Vectors
+        come back in ``x``'s dtype (the chain runs in f32); the inputs are
+        not modified."""
+        if not self.chain_ready:
+            raise ValueError(
+                "cg_chain requires a chain-ready operator (square, diagonal "
+                f"split out); this operator has shape={self.shape}, "
+                f"diag_split={self.diag_split} - use the per-step solver path")
+        dt = x.dtype
+        f32 = torch.float32
+        rz = torch.as_tensor(rz, dtype=f32, device=x.device).reshape(())
+        xo, ro, po, rzo, res2 = cg_chain(
+            self, *(v.to(f32).contiguous() for v in (x, r, p)), rz, int(iters))
+        return xo.to(dt), ro.to(dt), po.to(dt), rzo, res2
 
 
 def pack_csr(csr: CSR, device=None) -> CsrOperator:
@@ -182,6 +203,32 @@ def neumann_chain_plain(op: CsrOperator, term0: torch.Tensor, iters: int,
     if with_residual:
         return acc, t, -y
     return acc, t
+
+
+def dot64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b accumulated in f64 and rounded to f32 (0-d), as the CG kernel
+    reduces its dots."""
+    return torch.dot(a.double(), b.double()).to(torch.float32)
+
+
+def cg_chain_plain(op: CsrOperator, x, r, p, rz, iters: int):
+    """The chain of ``cg_step`` passes, in plain PyTorch: the kernel's
+    arithmetic step by step (f64 dots rounded to f32, f32 vector updates
+    without fused multiply-adds)."""
+    if iters < 1:
+        raise ValueError(f"cg_chain needs iters >= 1, got {iters}")
+    x, r, p = x.clone(), r.clone(), p.clone()
+    for _ in range(iters):
+        q = csr_spmv_plain(op, p, op.diag)
+        alpha = rz / torch.clamp(dot64(p, q), min=TINY)
+        x = x + alpha * p
+        r = r - alpha * q
+        z = op.inv_diag * r
+        rz_new = dot64(r, z)
+        beta = rz_new / torch.clamp(rz, min=TINY)
+        p = z + beta * p
+        rz = rz_new
+    return x, r, p, rz, dot64(r, r)
 
 
 # ---------------------------------------------------------------- kernels
@@ -287,3 +334,40 @@ def neumann_chain(op: CsrOperator, term0: torch.Tensor, iters: int,
     if with_residual:
         return acc, t_in, res
     return acc, t_in
+
+
+def cg_chain(op: CsrOperator, x, r, p, rz, iters: int):
+    """``iters`` CG steps of ``cg_step`` from the f32 state (x, r, p) and the
+    0-d f32 ``rz``; returns ``(x, r, p, rz, res2)`` as
+    ``CsrOperator.cg_chain`` documents.  On the card the state is copied once
+    and then updated in place by the kernels."""
+    if iters < 1:
+        raise ValueError(f"cg_chain needs iters >= 1, got {iters}")
+    if x.device.type == "cpu":
+        return cg_chain_plain(op, x, r, p, rz, iters)
+    from ._kernels import library
+
+    n = op.n_pad
+    _check_operands(op, x=(x, n), r=(r, n), p=(p, n), diag=(op.diag, n),
+                    inv_diag=(op.inv_diag, n))
+    if rz.device != x.device or rz.dtype != torch.float32 or rz.dim() != 0:
+        raise ValueError(f"rz: {rz.dtype} {tuple(rz.shape)} on {rz.device}; "
+                         f"the kernel takes a 0-d float32 tensor on {x.device}")
+    lib = library()
+    x, r, p = x.clone(), r.clone(), p.clone()
+    q = torch.empty_like(x)
+    # slot 0 = rz on entry; step j: p.q in 2j+1, r.z in 2j+2; r.r last
+    scal = torch.zeros(2 * iters + 2, dtype=torch.float64, device=x.device)
+    scal[0] = rz
+    out = torch.empty(2, dtype=torch.float32, device=x.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    # the same operands for every step; only the step index changes
+    args = (x.device.index or 0, n,
+            *map(_ptr, (op.indptr, op.indices, op.vals, op.diag, op.inv_diag,
+                        x, r, p, q, scal)))
+    for j in range(iters):
+        LAUNCHES["cg_step"] += 1
+        rc = lib.slt_cg_step(*args, j, iters, int(j == iters - 1), _ptr(out),
+                             stream)
+        _raise_on(rc, "cg_step", lib)
+    return x, r, p, out[0], out[1]

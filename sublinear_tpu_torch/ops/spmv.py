@@ -1,14 +1,45 @@
-"""Dense products, as in ``sublinear_tpu/ops/spmv.py::dense_matvec/matmat``.
+"""Sparse and dense products, as in ``sublinear_tpu/ops/spmv.py``.
 
-The JAX package computes these with ``jnp.dot`` at ``Precision.HIGHEST``
-outside any Pallas kernel; here they are ``torch.matmul`` in full float32
-(``config`` turns TF32 off).  The ELL/COO products are still to be ported
-(ROADMAP queue 1, item 2); the sparse single-RHS product lives in
-``ops/csr_spmv.py``.
+The JAX package computes these with ``jnp.take``, ``einsum``,
+``segment_sum`` and ``jnp.dot`` at ``Precision.HIGHEST``, outside any
+Pallas kernel; here they are plain PyTorch in full float32 (``config``
+turns TF32 off).  Slot-major ELL: ``values``/``cols`` of shape ``(K, n)``,
+padded slots pointing at column 0 with value 0; the COO tail holds the
+entries beyond the slot cap, rows sorted.  Not ported: ``ell_matvec_wide``
+(a TPU gather-engine trick) and the batch-major ``_bmajor`` variants (they
+belong to ``solve_batch``).  The sparse single-RHS product of the ``"csr"``
+route lives in ``ops/csr_spmv.py``.
 """
 from __future__ import annotations
 
 import torch
+
+
+def ell_matvec(values: torch.Tensor, cols: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for slot-major ELL. values/cols: (K, n); x: (m,)."""
+    gathered = x.index_select(0, cols.reshape(-1)).view(cols.shape)
+    return (values * gathered).sum(0)
+
+
+def ell_matmat(values: torch.Tensor, cols: torch.Tensor,
+               X: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for batched RHS.  X: (m, B) -> (n, B)."""
+    gathered = X.index_select(0, cols.reshape(-1)).view(*cols.shape, X.shape[1])
+    return (values[:, :, None] * gathered).sum(0)
+
+
+def coo_matvec(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+               x: torch.Tensor, n: int) -> torch.Tensor:
+    """Tail COO product: y[rows] += vals * x[cols]."""
+    y = torch.zeros(n, dtype=x.dtype, device=x.device)
+    return y.index_add_(0, rows, vals * x.index_select(0, cols))
+
+
+def coo_matmat(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+               X: torch.Tensor, n: int) -> torch.Tensor:
+    Y = torch.zeros((n, X.shape[1]), dtype=X.dtype, device=X.device)
+    return Y.index_add_(0, rows, vals[:, None] * X.index_select(0, cols))
 
 
 def dense_matvec(data: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

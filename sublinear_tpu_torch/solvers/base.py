@@ -65,6 +65,27 @@ def _as_dtype(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
+def limits(dtype: torch.dtype, threshold: float, change_tol: float = 0.0):
+    """(threshold, divergence bound, change tolerance) rounded to the
+    residual's dtype, for ``running``."""
+    return tuple(_as_dtype(v, dtype) for v in (threshold, HUGE_RES, change_tol))
+
+
+def running(res: float, change: float, k: int, max_iters: int, lims,
+            mode: str = "residual") -> bool:
+    """The JAX while_loop's condition: not yet converged under ``mode``,
+    within the iteration budget, and not diverged (non-finite or exploding
+    residual).  ``lims`` comes from ``limits``."""
+    thr, huge, tol = lims
+    if mode == "relative_change":
+        not_done = change > tol
+    elif mode == "combined":
+        not_done = res > thr or change > tol
+    else:
+        not_done = res > thr
+    return not_done and k < max_iters and math.isfinite(res) and res < huge
+
+
 def while_iterate(step_block: Callable, residual_of: Callable, state0, threshold, max_iters: int, check_every: int, x_of: Callable | None = None, mode: str = "residual", change_tol: float = 0.0):
     """Generic host-driven loop.
 
@@ -82,20 +103,10 @@ def while_iterate(step_block: Callable, residual_of: Callable, state0, threshold
     iteration budget.  Returns (state, k, res, change) with host numbers.
     """
     res_t = residual_of(state0)
-    thr = _as_dtype(threshold, res_t.dtype)
-    huge = _as_dtype(HUGE_RES, res_t.dtype)
-    tol = _as_dtype(change_tol, res_t.dtype)
+    lims = limits(res_t.dtype, threshold, change_tol)
     res, change = float(res_t), math.inf
-
-    def not_done():
-        if mode == "relative_change":
-            return change > tol
-        if mode == "combined":
-            return res > thr or change > tol
-        return res > thr
-
     state, k = state0, 0
-    while not_done() and k < max_iters and math.isfinite(res) and res < huge:
+    while running(res, change, k, max_iters, lims, mode):
         new_state = step_block(state)
         if x_of is not None and mode in ("relative_change", "combined"):
             x_old, x_new = x_of(state), x_of(new_state)

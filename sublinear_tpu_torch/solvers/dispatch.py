@@ -1,11 +1,13 @@
 """Top-level ``solve()``: validation, DD gating and adaptive method choice, as
 in ``sublinear_tpu/solvers/dispatch.py``.
 
-Of the solver family, the Neumann series is ported.  ``ADAPTIVE`` runs when
-``select_method`` picks Neumann and it converges.  Every other method, and
-the adaptive polish to CG/BiCGSTAB, raises ``NotImplementedError`` naming
-the ROADMAP item that ports it.  The E001 gate runs first, exactly as in the
-JAX package, so error codes match for every method.
+Of the solver family, the Neumann series, CG and BiCGSTAB are ported.
+``ADAPTIVE`` runs what ``select_method`` picks and, when a non-Krylov choice
+does not converge, polishes with CG (symmetric) or BiCGSTAB from its
+iterate, as the JAX package does.  Every other method raises
+``NotImplementedError`` naming the ROADMAP item that ports it.  The E001 gate
+runs first, exactly as in the JAX package, so error codes match for every
+method.
 """
 from __future__ import annotations
 
@@ -37,8 +39,6 @@ _DD_REQUIRED = {
 }
 
 _ROADMAP_ITEM = {
-    Method.CG: "queue 1, item 3",
-    Method.BICGSTAB: "queue 1, item 3",
     Method.JACOBI: "queue 1, item 5",
     Method.GAUSS_SEIDEL: "queue 1, item 5",
     Method.SOR: "queue 1, item 5",
@@ -52,9 +52,9 @@ _ROADMAP_ITEM = {
 }
 
 
-def _not_ported(m: Method, what: str = "method") -> NotImplementedError:
+def _not_ported(m: Method) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} '{m.value}' is not ported yet (ROADMAP {_ROADMAP_ITEM[m]})")
+        f"method '{m.value}' is not ported yet (ROADMAP {_ROADMAP_ITEM[m]})")
 
 
 def _validate(matrix: Matrix, b) -> np.ndarray:
@@ -116,13 +116,23 @@ def solve(
             )
             if first.converged:
                 return first
-            # the JAX package polishes with a Krylov method from here
+            # warm-start a Krylov polish from the failed iterate: CG on a
+            # symmetric system, BiCGSTAB otherwise
+            x0 = (np.asarray(first.solution)
+                  if np.all(np.isfinite(first.solution)) else None)
             polish_m = (
                 Method.CG
                 if analyze(matrix, estimate_condition=False).is_symmetric
                 else Method.BICGSTAB
             )
-            raise _not_ported(polish_m, "adaptive polish with")
+            polish = dataclasses.replace(options, method=polish_m, x0=x0)
+            result = solve(matrix, b, polish, raise_on_fail=raise_on_fail)
+            return dataclasses.replace(
+                result,
+                iterations=result.iterations + first.iterations,
+                method=f"adaptive({first.method}->{result.method})",
+                compute_time_ms=result.compute_time_ms + first.compute_time_ms,
+            )
 
     if m in _DD_REQUIRED:
         a = analyze(matrix, estimate_condition=False)
@@ -140,6 +150,17 @@ def solve(
         from . import neumann as _neumann
 
         return _neumann.solve_neumann(matrix, b, options, raise_on_fail)
+    if m == Method.BICGSTAB:
+        from . import cg as _cg
+
+        return _cg.solve_bicgstab(matrix, b, options, raise_on_fail)
+    if m == Method.CG:
+        from . import cg as _cg
+
+        # CG's theory needs symmetry; an asymmetric system goes to BiCGSTAB
+        if analyze(matrix, estimate_condition=False).is_symmetric:
+            return _cg.solve_cg(matrix, b, options, raise_on_fail)
+        return _cg.solve_bicgstab(matrix, b, options, raise_on_fail)
     if m in _ROADMAP_ITEM:
         raise _not_ported(m)
     from ..errors import InvalidParametersError

@@ -120,6 +120,12 @@ def test_chain_argument_guards(system, iters, with_residual):
 
 
 def test_cg_chain_names_the_roadmap(system):
+    """cg_chain, once the ROADMAP's next kernel, now keeps its contract on
+    this (non-symmetric) operator too: five outputs, rz and res2 as 0-d f32
+    tensors, res2 = ||r||^2 of the returned residual."""
     _, _, op, b = system
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        op.cg_chain(t32(b), t32(b), t32(b), 1.0, 4)
+    x, r, p, rz, res2 = op.cg_chain(torch.zeros(N), t32(b), t32(b), 1.0, 4)
+    assert x.shape == r.shape == p.shape == (N,)
+    assert rz.shape == res2.shape == () and res2.dtype == torch.float32
+    np.testing.assert_allclose(float(res2), float(r.double().square().sum()),
+                               rtol=1e-6)

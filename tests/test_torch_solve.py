@@ -89,8 +89,8 @@ def test_adaptive_runs_neumann():
 
 def test_unported_method_names_the_roadmap():
     p = slp.generate("random-sparse", 200, seed=1, density=0.05)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
-        slp.solve(p, slp.rhs(200, seed=1), method="cg")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
+        slp.solve(p, slp.rhs(200, seed=1), method="jacobi")
 
 
 def test_timeout_path_converges():
