@@ -27,12 +27,28 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
      as method="cg", which dispatch routes to BiCGSTAB;
  11. solve(method="cg") on the SPD n=1M matrix (density 1e-5);
  12. CG on the DIA route (the "banded" catalog recipe at n=1M) and on the
-     ELL route (random-sparse n=12,000, density 0.03, made symmetric).
+     ELL route (random-sparse n=12,000, density 0.03, made symmetric);
+ 13. the four dense kernels of ops/dense_fused.py against their plain
+     versions, on random-sparse (density 0.01, seed 7) matrices of the dense
+     route: dense_neumann_fused at n=768 and n=1536 with B in {1, 4} and a
+     warm restart 8 then 8, dense_neumann_fused_bf16x3, dense_jacobi_fused
+     and dense_power_fused (on a column-stochastic P^T of a seeded random
+     graph with dangling nodes, alpha 0.85) at n=1536, each with iters=8,
+     and the time per call of each in turns;
+ 14. the dense fused path: solve_neumann_fused at n=768, epsilon 1e-6
+     ("neumann-fused-highest"), at n=1536, epsilon 1e-3
+     ("neumann-fused-bf16x3"), and at n=1536, epsilon 1e-6 (the fallback to
+     "neumann"), with launch counts and warm solve times.
 
+Beside each kernel's time the script computes its bound (the least time the
+card could take: the bytes the function must move at 3.35 TB/s, or its
+operations at the card's peak for their type, whichever is larger) and, for
+csr_spmv, times one PyTorch call that computes the same function (a CUDA
+torch.sparse_csr_tensor of A times x) as a yardstick the port never calls.
 The last two lines are a JSON object with one entry per kernel and the
 result {"ok": true, "device": {...}}.  ``--trace DIR`` also profiles one warm
-n=100k solve each of Neumann, CG and BiCGSTAB with torch.profiler and writes
-the traces into DIR.
+n=100k solve each of Neumann, CG and BiCGSTAB, and one warm n=768 fused
+solve, with torch.profiler and writes the traces into DIR.
 """
 from __future__ import annotations
 
@@ -58,6 +74,12 @@ CG_ITERS = 10
 CG_RTOL = 1e-4          # f32 CG steps amplify summation-order differences
 N_BANDED = 1_000_000
 N_ELL, DENSITY_ELL = 12_000, 0.03
+DENSE_SIZES, DENSITY_DENSE = (768, 1536), 0.01
+DENSE_ITERS = 8         # solve_neumann_fused's block
+X3_RTOL = 1e-4          # bf16x3: the bf16 split of t may round the other way
+# the card's published peaks (H100 SXM data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 
 SOURCES = {
     "csr_spmv": ("sublinear_tpu_torch/csrc/csr_kernels.cu",
@@ -67,6 +89,19 @@ SOURCES = {
                      "sublinear_tpu/ops/xbar.py:490 (_chain_call)"),
     "cg_step": ("sublinear_tpu_torch/csrc/csr_kernels.cu",
                 "sublinear_tpu/ops/xbar.py:619 (_cg_chain_call)"),
+    "dense_neumann_fused": (
+        "sublinear_tpu_torch/csrc/dense_kernels.cu",
+        "sublinear_tpu/ops/pallas_kernels.py:57 (dense_neumann_fused)"),
+    "dense_neumann_fused_bf16x3": (
+        "sublinear_tpu_torch/csrc/dense_kernels.cu",
+        "sublinear_tpu/ops/pallas_kernels.py:177 "
+        "(dense_neumann_fused_bf16x3)"),
+    "dense_jacobi_fused": (
+        "sublinear_tpu_torch/csrc/dense_kernels.cu",
+        "sublinear_tpu/ops/pallas_kernels.py:96 (dense_jacobi_fused)"),
+    "dense_power_fused": (
+        "sublinear_tpu_torch/csrc/dense_kernels.cu",
+        "sublinear_tpu/ops/pallas_kernels.py:124 (dense_power_fused)"),
 }
 
 
@@ -92,6 +127,31 @@ def time_ms(torch, fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, flops, kind="f32"):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dense_bound(name, n, B, iters):
+    """Bound of one call of a dense kernel at (n, B, iters): A (or its two
+    bf16 halves, or P^T) read once, the (n, 1) and (n, B) inputs read once,
+    x written once; 2 n^2 B flops per product plus the epilogue's."""
+    if name == "dense_neumann_fused":
+        return bound(4 * n * n + 8 * n + 12 * n * B,
+                     (2 * n * n * B + 4 * n * B) * (iters + 1))
+    if name == "dense_neumann_fused_bf16x3":
+        # three bf16 x bf16 products, exact in f32: the bf16 peak
+        return bound(4 * n * n + 8 * n + 12 * n * B,
+                     3 * 2 * n * n * B * (iters + 1), "bf16")
+    if name == "dense_jacobi_fused":
+        return bound(4 * n * n + 8 * n + 12 * n * B,
+                     (2 * n * n * B + 5 * n * B) * iters)
+    return bound(4 * n * n + 12 * n * B, (2 * n * n * B + 7 * n * B) * iters)
 
 
 def host_residual(A, x, b) -> float:
@@ -182,9 +242,47 @@ def profile_solve(torch, fn, path):
         print(f"  {t:10.1f} us  x{count:<4d} {key[:90]}", flush=True)
 
 
-def reset(K):
-    for name in K.LAUNCHES:
-        K.LAUNCHES[name] = 0
+def library_spmv_ms(torch, A, op, x, K, label):
+    """CUDA-event ms of one cuSPARSE product y = A x through a CUDA
+    torch.sparse_csr_tensor of the full A (the diagonal included), checked
+    against csr_spmv first.  A yardstick only: the port never calls it."""
+    csr = A.csr
+    S = torch.sparse_csr_tensor(
+        torch.as_tensor(csr.indptr.astype(np.int32)),
+        torch.as_tensor(csr.indices.astype(np.int32)),
+        torch.as_tensor(csr.data.astype(np.float32)), size=csr.shape,
+        device=x.device)
+    err = rel_err(torch.mv(S, x), K.csr_spmv(op, x, op.diag))
+    lib_ms = time_ms(torch, lambda: torch.mv(S, x), 200)
+    print(f"  library torch.mv(sparse_csr A, x) at {label}: {lib_ms:.5f} ms "
+          f"(max rel diff from csr_spmv {err:.3e})", flush=True)
+    if not err <= KERNEL_RTOL:
+        raise RuntimeError(f"sparse_csr product disagrees with csr_spmv: "
+                           f"{err}")
+    return lib_ms
+
+
+def reset(*modules):
+    for mod in modules:
+        for name in mod.LAUNCHES:
+            mod.LAUNCHES[name] = 0
+
+
+def stochastic(torch, n, B, dev, seed=SEED):
+    """(P^T, v, dangling) of a seeded random graph (out-degree about 15)
+    with every eighth node dangling; P^T is column-stochastic, v positive
+    with columns summing to 1."""
+    rng = np.random.default_rng(seed)
+    adj = (rng.random((n, n)) < 15.0 / n).astype(np.float64)
+    np.fill_diagonal(adj, 0.0)
+    adj[::8] = 0.0
+    deg = adj.sum(axis=1)
+    pt = (adj / np.where(deg > 0, deg, 1.0)[:, None]).T
+    v = rng.random((n, B)) + 0.5
+    v /= v.sum(axis=0)
+    dang = np.repeat((deg == 0).astype(np.float64)[:, None], B, 1)
+    return tuple(torch.as_tensor(np.ascontiguousarray(m), dtype=torch.float32,
+                                 device=dev) for m in (pt, v, dang))
 
 
 def main() -> int:
@@ -200,6 +298,8 @@ def main() -> int:
         raise RuntimeError("torch.cuda.is_available() is False: no card")
     import sublinear_tpu_torch as slt
     from sublinear_tpu_torch.ops import _kernels, csr_spmv as K
+    from sublinear_tpu_torch.ops import dense_fused as DF
+    from sublinear_tpu_torch.solvers.fused import solve_neumann_fused
 
     if Path(slt.__file__).resolve().parent.parent != HERE:
         raise RuntimeError(f"sublinear_tpu_torch imported from {slt.__file__},"
@@ -260,6 +360,17 @@ def main() -> int:
     ms = {"csr_spmv": time_ms(torch, lambda: K.csr_spmv(op, x, op.diag), 200)}
     plain_ms = {"csr_spmv": time_ms(
         torch, lambda: K.csr_spmv_plain(op, x, op.diag), 200)}
+    library_ms = {"csr_spmv": library_spmv_ms(torch, A, op, x, K, "n=100k")}
+    nnz_off = op.indices.numel()
+    bounds = {
+        # indptr, off-diagonal indices and values, x, diag and y once each
+        "csr_spmv": bound(4 * (N_MAIN + 1) + 8 * nnz_off + 12 * N_MAIN,
+                          2 * nnz_off + 2 * N_MAIN),
+        # one step: the matrix, t_in, inv_d and acc read, t_out and acc
+        # written
+        "neumann_step": bound(4 * (N_MAIN + 1) + 8 * nnz_off + 20 * N_MAIN,
+                              2 * nnz_off + 3 * N_MAIN),
+    }
 
     phase(f"4 main path: solve(method='neumann') at n={N_MAIN}")
     reset(K)
@@ -327,6 +438,16 @@ def main() -> int:
     print(f"iterations={r_big.iterations} host f64 rel residual="
           f"{rel_big:.3e} warm solve ms {big_ms:.4f} "
           f"neumann_step ms {step_ms:.4f}", flush=True)
+    x_big = t_big.clone()
+    spmv_big_ms = time_ms(torch, lambda: K.csr_spmv(op_big, x_big,
+                                                    op_big.diag), 50)
+    nnz_big = op_big.indices.numel()
+    spmv_big_bound, _ = bound(4 * (N_LARGE + 1) + 8 * nnz_big + 12 * N_LARGE,
+                              2 * nnz_big + 2 * N_LARGE)
+    print(f"  csr_spmv at n={N_LARGE}: {spmv_big_ms:.5f} ms, bound "
+          f"{spmv_big_bound:.5f} ms (bytes)", flush=True)
+    library_spmv_ms(torch, A_big, op_big, x_big, K, "n=1M")
+    del x_big
 
     phase("7 canonical drive at n=1000 (dense route)")
     A1 = slt.generate("random-sparse", 1000, seed=7, density=0.001)
@@ -379,6 +500,10 @@ def main() -> int:
           f"{turns['plain']}", flush=True)
     ms["cg_step"] = sum(turns["kernel"]) / 2
     plain_ms["cg_step"] = sum(turns["plain"]) / 2
+    nnz_s = sop.indices.numel()
+    # one step: the matrix, diag, inv_d, x, r, p read; x, r, p written
+    bounds["cg_step"] = bound(4 * (N_MAIN + 1) + 8 * nnz_s + 32 * N_MAIN,
+                              2 * nnz_s + 13 * N_MAIN)
 
     phase(f"9 main path: solve(method='cg') at n={N_MAIN} (SPD)")
     reset(K)
@@ -473,14 +598,140 @@ def main() -> int:
               f"iterations={r_m.iterations} host f64 rel residual="
               f"{rel_m:.3e} warm solve ms {m_ms:.4f}", flush=True)
 
+    phase(f"13 dense kernels vs plain at n={DENSE_SIZES}, "
+          f"iters={DENSE_ITERS}")
+    dense = {}
+    for n in DENSE_SIZES:
+        dense[n] = slt.generate("random-sparse", n, seed=SEED,
+                                density=DENSITY_DENSE)
+        if dense[n]._op_kind() != "dense":
+            raise RuntimeError(f"n={n} routes to {dense[n]._op_kind()!r}, "
+                               "not 'dense'")
+    rng = np.random.default_rng(SEED)
+
+    def dense_case(name, n, B):
+        """(kernel call, plain call) of one dense kernel at (n, B)."""
+        if name == "dense_power_fused":
+            pt, v, dang = stochastic(torch, n, B, dev)
+            return (lambda: DF.dense_power_fused(pt, v, dang, 0.85,
+                                                 DENSE_ITERS),
+                    lambda: DF.dense_power_fused_plain(pt, v, dang, 0.85,
+                                                       DENSE_ITERS))
+        dop = dense[n].op()
+        d, dinv = dop.diag[:, None], dop.inv_diag[:, None]
+        b_d, x_d = (torch.as_tensor(s * rng.standard_normal((n, B)),
+                                    dtype=torch.float32, device=dev)
+                    for s in (1.0, 0.1))
+        if name == "dense_neumann_fused_bf16x3":
+            ah, al = DF.split_bf16(dop.data)
+            return (lambda: DF.dense_neumann_fused_bf16x3(
+                        ah, al, d, dinv, b_d, x_d, DENSE_ITERS),
+                    lambda: DF.dense_neumann_fused_bf16x3_plain(
+                        ah, al, d, dinv, b_d, x_d, DENSE_ITERS))
+        fn, plain = getattr(DF, name), getattr(DF, name + "_plain")
+        return (lambda: fn(dop.data, d, dinv, b_d, x_d, DENSE_ITERS),
+                lambda: plain(dop.data, d, dinv, b_d, x_d, DENSE_ITERS))
+
+    # the shape each kernel's time is reported at: the fused path's for
+    # the two Neumann variants, the widest for the two no path runs
+    timed = {"dense_neumann_fused": (768, 1),
+             "dense_neumann_fused_bf16x3": (1536, 1),
+             "dense_jacobi_fused": (1536, 1), "dense_power_fused": (1536, 1)}
+    cases = [("dense_neumann_fused", n, B) for n in DENSE_SIZES
+             for B in (1, 4)]
+    cases += [(name, 1536, B) for name in ("dense_neumann_fused_bf16x3",
+                                           "dense_jacobi_fused",
+                                           "dense_power_fused")
+              for B in (1, 4)]
+    for name, n, B in cases:
+        kern, plain = dense_case(name, n, B)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        rel = rel_err(got, want)
+        errs.setdefault(name, []).append(
+            (f"n={n} B={B}", rel, float((got - want).abs().max())))
+        limit = X3_RTOL if name.endswith("bf16x3") else KERNEL_RTOL
+        print(f"  {name} n={n} B={B}: max rel err {rel:.3e}", flush=True)
+        if not rel <= limit:
+            raise RuntimeError(f"{name} n={n} B={B} disagrees with its plain "
+                               f"version: {rel} > {limit}")
+        if B != 1:
+            continue
+        turns = {"kernel": [], "plain": []}
+        for label in ("kernel", "plain", "plain", "kernel"):
+            turns[label].append(time_ms(
+                torch, kern if label == "kernel" else plain, 50))
+        k_ms, p_ms = (sum(turns[k]) / 2 for k in ("kernel", "plain"))
+        b_ms, b_by = dense_bound(name, n, B, DENSE_ITERS)
+        print(f"  {name} n={n} B=1 ms per call: kernel {turns['kernel']} "
+              f"plain {turns['plain']}; bound {b_ms:.5f} ms ({b_by}), "
+              f"{b_ms / k_ms:.3f} of it", flush=True)
+        if (n, B) == timed[name]:
+            ms[name], plain_ms[name] = k_ms, p_ms
+            bounds[name] = (b_ms, b_by)
+    for n in DENSE_SIZES:  # warm restart: 8 then 8 against plain 8 then 8
+        dop = dense[n].op()
+        d, dinv = dop.diag[:, None], dop.inv_diag[:, None]
+        b_d = dense[n].pad_vector(slt.rhs(n, seed=SEED))[:, None]
+        x0_d = torch.zeros_like(b_d)
+        got = DF.dense_neumann_fused(dop.data, d, dinv, b_d,
+                                     DF.dense_neumann_fused(
+                                         dop.data, d, dinv, b_d, x0_d, 8), 8)
+        want = DF.dense_neumann_fused_plain(
+            dop.data, d, dinv, b_d,
+            DF.dense_neumann_fused_plain(dop.data, d, dinv, b_d, x0_d, 8), 8)
+        rel = rel_err(got, want)
+        errs["dense_neumann_fused"].append(
+            (f"n={n} 8+8", rel, float((got - want).abs().max())))
+        print(f"  dense_neumann_fused n={n} warm restart 8+8: max rel err "
+              f"{rel:.3e}", flush=True)
+        if not rel <= KERNEL_RTOL:
+            raise RuntimeError(f"warm restart at n={n}: {rel} > "
+                               f"{KERNEL_RTOL}")
+
+    phase("14 the dense fused path: solve_neumann_fused")
+    for n, eps, expect, key in (
+            (768, 1e-6, "neumann-fused-highest", "dense_neumann_fused"),
+            (1536, 1e-3, "neumann-fused-bf16x3",
+             "dense_neumann_fused_bf16x3"),
+            (1536, 1e-6, "neumann", None)):
+        M, b_m = dense[n], slt.rhs(n, seed=SEED)
+        opts = slt.SolverOptions(epsilon=eps)
+        reset(DF)
+        r = solve_neumann_fused(M, b_m, opts)
+        counts = dict(DF.LAUNCHES)
+        ran = sorted(k for k, v in counts.items() if v)
+        rel = host_residual(M, r.solution, b_m)
+        if not (r.converged and np.all(np.isfinite(r.solution))
+                and r.solution.shape == b_m.shape
+                and rel < max(SOLVE_RTOL, 1.5 * eps) and r.method == expect
+                and ran == ([key] if key else [])):
+            raise RuntimeError(f"fused n={n} eps={eps}: method={r.method} "
+                               f"converged={r.converged} host rel residual "
+                               f"{rel} launches {counts}")
+        if key:
+            launches[key] = counts[key]
+        warm = warm_ms(torch, lambda: solve_neumann_fused(M, b_m, opts), 5)
+        print(f"n={n} eps={eps}: ran {r.method}, iterations={r.iterations} "
+              f"residual={r.residual:.3e} host f64 rel residual={rel:.3e} "
+              f"launches={counts} warm solve ms "
+              f"{' '.join(f'{t:.4f}' for t in warm)}", flush=True)
+        if args.trace is not None and n == 768:
+            profile_solve(torch, lambda: solve_neumann_fused(M, b_m, opts),
+                          args.trace / "fused_solve_n768.json")
+    # on no path of the port or of the JAX package (tests only)
+    launches["dense_jacobi_fused"] = launches["dense_power_fused"] = 0
+
     kernels = []
-    for name in ("csr_spmv", "neumann_step", "cg_step"):
-        source, replaces = SOURCES[name]
+    for name, (source, replaces) in SOURCES.items():
+        b_ms, b_by = bounds[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(ab for _, _, ab in errs[name]),
             "ms": ms[name], "plain_ms": plain_ms[name],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms.get(name),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

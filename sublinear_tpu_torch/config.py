@@ -16,14 +16,22 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 def device(explicit=None) -> torch.device:
     """Resolve the compute device: an explicit argument, then the
-    ``SLT_TORCH_DEVICE`` environment variable, then ``cuda`` when a card is
-    present, else ``cpu``."""
+    ``SLT_TORCH_DEVICE`` environment variable, then ``cuda``.
+
+    The CPU is taken only when one of the first two asks for it: with
+    neither set and no card present this raises, so a machine whose card is
+    missing never solves on the CPU without saying so."""
     if explicit is not None:
         return torch.device(explicit)
     env = os.environ.get("SLT_TORCH_DEVICE")
     if env:
         return torch.device(env)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card is available (torch.cuda.is_available() is False); "
+            "to run on the CPU ask for it: Matrix(..., device='cpu') or "
+            "SLT_TORCH_DEVICE=cpu")
+    return torch.device("cuda")
 
 
 def default_dtype() -> torch.dtype:

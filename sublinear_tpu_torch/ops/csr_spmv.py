@@ -25,13 +25,12 @@ kernel launches (one ``cg_step`` count per CG step).
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from ..config import to_device
 from ..formats.csr import CSR
+from ._kernels import library, ptr, raise_on, stream_of
 
 LAUNCHES = {"csr_spmv": 0, "neumann_step": 0, "cg_step": 0}
 
@@ -233,10 +232,6 @@ def cg_chain_plain(op: CsrOperator, x, r, p, rz, iters: int):
 
 # ---------------------------------------------------------------- kernels
 
-def _ptr(t):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
-
-
 def _check_operands(op: CsrOperator, **vectors):
     """Raise unless the operator's arrays and the ``name=(tensor, length)``
     vectors are what the kernels take: contiguous 1-D int32 / f32 tensors of
@@ -263,30 +258,20 @@ def _check_operands(op: CsrOperator, **vectors):
                 f"contiguous {dtype} ({length},) on {dev}")
 
 
-def _raise_on(rc: int, name: str, lib):
-    if rc != 0:
-        msg = lib.slt_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
-                           f"({msg})")
-
-
 def csr_spmv(op: CsrOperator, x: torch.Tensor, diag=None) -> torch.Tensor:
     """y = R x, plus diag * x when ``diag`` is given (f32)."""
     if x.device.type == "cpu":
         return csr_spmv_plain(op, x, diag)
-    from ._kernels import library
 
     n = op.n_pad
     _check_operands(op, x=(x, op.m_pad), diag=(diag, n))
-    lib = library()
+    lib = library("csr_kernels")
     y = torch.empty(n, dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     LAUNCHES["csr_spmv"] += 1
     rc = lib.slt_csr_spmv(
-        x.device.index or 0, n, _ptr(op.indptr), _ptr(op.indices),
-        _ptr(op.vals), _ptr(x), _ptr(diag), _ptr(y),
-        ctypes.c_void_p(stream))
-    _raise_on(rc, "csr_spmv", lib)
+        x.device.index or 0, n, ptr(op.indptr), ptr(op.indices),
+        ptr(op.vals), ptr(x), ptr(diag), ptr(y), stream_of(x))
+    raise_on(rc, "csr_spmv", lib)
     return y
 
 
@@ -302,11 +287,10 @@ def neumann_chain(op: CsrOperator, term0: torch.Tensor, iters: int,
                          f"got {with_residual!r}")
     if term0.device.type == "cpu":
         return neumann_chain_plain(op, term0, iters, with_residual)
-    from ._kernels import library
 
     n = op.n_pad
     _check_operands(op, term0=(term0, n), inv_diag=(op.inv_diag, n))
-    lib = library()
+    lib = library("csr_kernels")
     acc = term0.clone()
     # ping-pong: a row's gather reads other rows of t_in, so t_out is
     # never the buffer being read
@@ -315,7 +299,7 @@ def neumann_chain(op: CsrOperator, term0: torch.Tensor, iters: int,
     res = torch.empty_like(term0) if with_residual and not norm else None
     res2 = (torch.zeros((), dtype=torch.float64, device=term0.device)
             if norm else None)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(term0.device).cuda_stream)
+    stream = stream_of(term0)
     device = term0.device.index or 0
     t_in = term0
     for j in range(iters):
@@ -323,11 +307,11 @@ def neumann_chain(op: CsrOperator, term0: torch.Tensor, iters: int,
         t_out = bufs[j % 2]
         LAUNCHES["neumann_step"] += 1
         rc = lib.slt_neumann_step(
-            device, n, _ptr(op.indptr), _ptr(op.indices), _ptr(op.vals),
-            _ptr(t_in), _ptr(op.inv_diag), _ptr(t_out), _ptr(acc),
-            _ptr(res if last else None), _ptr(res2 if last else None),
+            device, n, ptr(op.indptr), ptr(op.indices), ptr(op.vals),
+            ptr(t_in), ptr(op.inv_diag), ptr(t_out), ptr(acc),
+            ptr(res if last else None), ptr(res2 if last else None),
             stream)
-        _raise_on(rc, "neumann_step", lib)
+        raise_on(rc, "neumann_step", lib)
         t_in = t_out
     if norm:
         return acc, t_in, res2.to(torch.float32)
@@ -345,7 +329,6 @@ def cg_chain(op: CsrOperator, x, r, p, rz, iters: int):
         raise ValueError(f"cg_chain needs iters >= 1, got {iters}")
     if x.device.type == "cpu":
         return cg_chain_plain(op, x, r, p, rz, iters)
-    from ._kernels import library
 
     n = op.n_pad
     _check_operands(op, x=(x, n), r=(r, n), p=(p, n), diag=(op.diag, n),
@@ -353,21 +336,21 @@ def cg_chain(op: CsrOperator, x, r, p, rz, iters: int):
     if rz.device != x.device or rz.dtype != torch.float32 or rz.dim() != 0:
         raise ValueError(f"rz: {rz.dtype} {tuple(rz.shape)} on {rz.device}; "
                          f"the kernel takes a 0-d float32 tensor on {x.device}")
-    lib = library()
+    lib = library("csr_kernels")
     x, r, p = x.clone(), r.clone(), p.clone()
     q = torch.empty_like(x)
     # slot 0 = rz on entry; step j: p.q in 2j+1, r.z in 2j+2; r.r last
     scal = torch.zeros(2 * iters + 2, dtype=torch.float64, device=x.device)
     scal[0] = rz
     out = torch.empty(2, dtype=torch.float32, device=x.device)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    stream = stream_of(x)
     # the same operands for every step; only the step index changes
     args = (x.device.index or 0, n,
-            *map(_ptr, (op.indptr, op.indices, op.vals, op.diag, op.inv_diag,
-                        x, r, p, q, scal)))
+            *map(ptr, (op.indptr, op.indices, op.vals, op.diag, op.inv_diag,
+                       x, r, p, q, scal)))
     for j in range(iters):
         LAUNCHES["cg_step"] += 1
-        rc = lib.slt_cg_step(*args, j, iters, int(j == iters - 1), _ptr(out),
+        rc = lib.slt_cg_step(*args, j, iters, int(j == iters - 1), ptr(out),
                              stream)
-        _raise_on(rc, "cg_step", lib)
+        raise_on(rc, "cg_step", lib)
     return x, r, p, out[0], out[1]

@@ -159,22 +159,25 @@ def neumann_truncation_bounds(matrix: Matrix, terms: int, term_norm: float, rhs_
     return dd_error_bounds(matrix, residual)
 
 
-def _sync():
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-
-
 class SolveTimer:
-    """Wall time of a block of device work: synchronises the card before
-    reading the clock on entry and on exit."""
+    """Wall time of a block of work on ``device``: on a CUDA device it
+    synchronises that device before reading the clock on entry and on
+    exit."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def __enter__(self):
-        _sync()
+        self._sync()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        _sync()
+        self._sync()
         self.ms = (time.perf_counter() - self.t0) * 1e3
         return False
 

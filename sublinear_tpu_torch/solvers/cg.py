@@ -133,7 +133,7 @@ def solve_cg(matrix: Matrix, b, options: SolverOptions,
     # conditions, cg.py:167-169)
     use_chain = (getattr(op, "chain_ready", False) and precondition
                  and mode == "residual" and options.check_every > 1)
-    with base.SolveTimer() as t:
+    with base.SolveTimer(matrix.device) as t:
         if use_chain:
             x, k, res = _cg_chain_run(op, b_pad, x0, threshold,
                                       options.max_iterations,
@@ -152,7 +152,7 @@ def solve_cg(matrix: Matrix, b, options: SolverOptions,
 def solve_bicgstab(matrix: Matrix, b, options: SolverOptions,
                    raise_on_fail: bool = True) -> SolverResult:
     op, b_pad, x0, threshold = _prepare(matrix, b, options)
-    with base.SolveTimer() as t:
+    with base.SolveTimer(matrix.device) as t:
         x, k, res, change = _bicgstab_run(
             op, b_pad, x0, threshold, options.max_iterations,
             base.driver_mode_of(options), options.epsilon)

@@ -65,7 +65,7 @@ def solve_neumann(matrix: Matrix, b, options: SolverOptions, raise_on_fail: bool
         x0 = torch.zeros_like(b_pad)
     threshold = base.threshold_for(b, options)
 
-    with base.SolveTimer() as t:
+    with base.SolveTimer(matrix.device) as t:
         x, k, res, change, term_n, rhs_n = _neumann_run(
             op, b_pad, x0, threshold, options.max_iterations, options.check_every,
             base.norm_mode_of(options), base.driver_mode_of(options), options.epsilon,

@@ -25,7 +25,7 @@ from sublinear_tpu_torch.formats.csr import CSR
 from sublinear_tpu_torch.ops import csr_spmv as K
 from sublinear_tpu_torch.types import ConvergenceMode as PortMode
 
-from torch_parity import dd_coo, matrix_pair, padded, spd_coo, t32
+from torch_parity import dd_coo, matrix_pair, padded, port_on_cpu, spd_coo, t32
 
 torch.set_num_threads(2)
 

@@ -14,7 +14,7 @@ import torch
 from sublinear_tpu_torch.ops.csr_spmv import pack_csr
 from sublinear_tpu_torch.formats.csr import CSR
 
-from torch_parity import dd_coo, matrix_pair, padded, t32
+from torch_parity import dd_coo, matrix_pair, padded, port_on_cpu, t32
 
 torch.set_num_threads(2)
 

@@ -15,7 +15,7 @@ from sublinear_tpu import native
 from sublinear_tpu.errors import SolverError as JaxSolverError
 from sublinear_tpu_torch.errors import SolverError as PortSolverError
 
-from torch_parity import dd_coo, matrix_pair
+from torch_parity import dd_coo, matrix_pair, port_on_cpu
 
 torch.set_num_threads(2)
 
@@ -181,3 +181,41 @@ def test_port_imports_no_jax():
         tree = ast.parse(path.read_text(), filename=str(path))
         bad = [m for m in _imported_modules(tree) if _forbidden(m)]
         assert not bad, f"{path.name} imports {bad}"
+
+
+def test_device_never_takes_the_cpu_by_itself(monkeypatch):
+    """With no argument, no SLT_TORCH_DEVICE and no card, resolving the
+    device raises and names both ways to ask for the CPU."""
+    from sublinear_tpu_torch import config
+
+    monkeypatch.delenv("SLT_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="SLT_TORCH_DEVICE=cpu"):
+        config.device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        slp.Matrix.from_dense(np.eye(3))
+    assert config.device("cpu") == torch.device("cpu")
+    assert slp.Matrix.from_dense(np.eye(3), device="cpu").device.type == "cpu"
+    monkeypatch.setenv("SLT_TORCH_DEVICE", "cpu")
+    assert config.device() == torch.device("cpu")
+
+
+def test_device_defaults_to_the_card(monkeypatch):
+    from sublinear_tpu_torch import config
+
+    monkeypatch.delenv("SLT_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert config.device() == torch.device("cuda")
+
+
+def test_solve_timer_syncs_only_its_device(monkeypatch):
+    """A CPU solve never touches the card's synchronisation."""
+    from sublinear_tpu_torch.solvers.base import SolveTimer
+
+    def no_sync(*_):
+        raise AssertionError("synchronised a card for a CPU solve")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+    with SolveTimer(torch.device("cpu")) as t:
+        pass
+    assert t.ms >= 0.0

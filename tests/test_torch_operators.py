@@ -20,7 +20,8 @@ from sublinear_tpu_torch.errors import SolverError as PortSolverError
 from sublinear_tpu_torch.formats import ell as pell
 from sublinear_tpu_torch.formats.streaming import estimate_op_bytes
 
-from torch_parity import banded_coo, dd_coo, matrix_pair, padded, spd_coo, t32
+from torch_parity import (banded_coo, dd_coo, matrix_pair, padded,
+                          port_on_cpu, spd_coo, t32)
 
 torch.set_num_threads(2)
 

@@ -15,7 +15,7 @@ from sublinear_tpu.types import ConvergenceMode as JaxMode
 from sublinear_tpu_torch.ops import csr_spmv as K
 from sublinear_tpu_torch.types import ConvergenceMode as PortMode
 
-from torch_parity import dd_coo, matrix_pair
+from torch_parity import dd_coo, matrix_pair, port_on_cpu
 
 torch.set_num_threads(2)
 

@@ -13,7 +13,7 @@ import torch
 from sublinear_tpu.ops.xbar import _k1_call, _k2_call, pack_xbar
 from sublinear_tpu_torch.ops import csr_spmv as K
 
-from torch_parity import dd_coo, matrix_pair, padded, t32
+from torch_parity import dd_coo, matrix_pair, padded, port_on_cpu, t32
 
 torch.set_num_threads(2)
 

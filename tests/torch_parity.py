@@ -4,12 +4,25 @@ Both packages get the same state: a matrix made with numpy from a seed is
 built as a JAX-package ``Matrix`` and carried into the port with
 ``interop.matrix_from_reference`` on the CPU, where the port's wrappers run
 their kernels' plain PyTorch versions.
+
+The port takes the card unless asked for the CPU, and raises where there is
+no card.  ``port_on_cpu`` asks for the CPU out loud: each CPU test module
+imports it, and it sets ``SLT_TORCH_DEVICE=cpu`` for that module's tests
+only, so the card-only tests of another module keep the card.
 """
 import numpy as np
+import pytest
 import torch
 
 from sublinear_tpu.matrix import Matrix as JaxMatrix
 from sublinear_tpu_torch import interop
+
+
+@pytest.fixture(autouse=True, scope="module")
+def port_on_cpu():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SLT_TORCH_DEVICE", "cpu")
+        yield
 
 
 def dd_coo(n, deg=5, seed=0):
