@@ -38,17 +38,29 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
  14. the dense fused path: solve_neumann_fused at n=768, epsilon 1e-6
      ("neumann-fused-highest"), at n=1536, epsilon 1e-3
      ("neumann-fused-bf16x3"), and at n=1536, epsilon 1e-6 (the fallback to
-     "neumann"), with launch counts and warm solve times.
+     "neumann"), with launch counts and warm solve times;
+ 15. the SpMM kernel against its plain version at n=100k: csr_spmm as
+     CsrOperator.matmat runs it (f32, split diagonal) for B in {8, 128},
+     and onehot_spmm on build_tiles of the same matrix at B=128 with
+     precise in {True, False}, each timed in turns with the plain version;
+ 16. the batch path: parallel.sharded.solve_batch at n=100k with 128 RHS
+     (numpy default_rng(0) standard normal, as bench.py's batch row) and
+     epsilon 1e-6, method="neumann" on the headline matrix and
+     method="auto" (CG) on its SPD form, with launch counts, each column's
+     host f64 residual and warm times per batch and per RHS;
+ 17. the small-batch path: solve_batch with 20 RHS at n=100k, which runs
+     serialized Neumann chain solves (neumann_step, no csr_spmm).
 
 Beside each kernel's time the script computes its bound (the least time the
 card could take: the bytes the function must move at 3.35 TB/s, or its
 operations at the card's peak for their type, whichever is larger) and, for
-csr_spmv, times one PyTorch call that computes the same function (a CUDA
-torch.sparse_csr_tensor of A times x) as a yardstick the port never calls.
-The last two lines are a JSON object with one entry per kernel and the
-result {"ok": true, "device": {...}}.  ``--trace DIR`` also profiles one warm
-n=100k solve each of Neumann, CG and BiCGSTAB, and one warm n=768 fused
-solve, with torch.profiler and writes the traces into DIR.
+csr_spmv and csr_spmm, times one PyTorch call that computes the same
+function (a CUDA torch.sparse_csr_tensor of A times x, or times X with
+torch.sparse.mm) as a yardstick the port never calls.  The last two lines
+are a JSON object with one entry per kernel and the result {"ok": true,
+"device": {...}}.  ``--trace DIR`` also profiles one warm n=100k solve each
+of Neumann, CG and BiCGSTAB, one warm n=768 fused solve and one warm
+128-RHS Neumann batch, with torch.profiler and writes the traces into DIR.
 """
 from __future__ import annotations
 
@@ -77,6 +89,11 @@ N_ELL, DENSITY_ELL = 12_000, 0.03
 DENSE_SIZES, DENSITY_DENSE = (768, 1536), 0.01
 DENSE_ITERS = 8         # solve_neumann_fused's block
 X3_RTOL = 1e-4          # bf16x3: the bf16 split of t may round the other way
+N_RHS = 128             # bench.py's batch row (bench_batch_point)
+N_RHS_CHAIN = 20        # solve_batch's serialized-chain path (<= 32 RHS)
+SPMM_WIDTHS = (8, 128)
+# f32 operations per stored entry and column of each csr_spmm product
+SPMM_OPS = {"f32": 2, "split": 9, "bf16": 2}
 # the card's published peaks (H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
@@ -102,6 +119,8 @@ SOURCES = {
     "dense_power_fused": (
         "sublinear_tpu_torch/csrc/dense_kernels.cu",
         "sublinear_tpu/ops/pallas_kernels.py:124 (dense_power_fused)"),
+    "csr_spmm": ("sublinear_tpu_torch/csrc/spmm_kernels.cu",
+                 "sublinear_tpu/ops/pallas_spmv.py:180 (onehot_spmm)"),
 }
 
 
@@ -242,16 +261,22 @@ def profile_solve(torch, fn, path):
         print(f"  {t:10.1f} us  x{count:<4d} {key[:90]}", flush=True)
 
 
+def sparse_csr(torch, A, dev):
+    """The full A (the diagonal included) as a CUDA torch.sparse_csr_tensor,
+    for the cuSPARSE yardsticks the port never calls."""
+    csr = A.csr
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(csr.indptr.astype(np.int32)),
+        torch.as_tensor(csr.indices.astype(np.int32)),
+        torch.as_tensor(csr.data.astype(np.float32)), size=csr.shape,
+        device=dev)
+
+
 def library_spmv_ms(torch, A, op, x, K, label):
     """CUDA-event ms of one cuSPARSE product y = A x through a CUDA
     torch.sparse_csr_tensor of the full A (the diagonal included), checked
     against csr_spmv first.  A yardstick only: the port never calls it."""
-    csr = A.csr
-    S = torch.sparse_csr_tensor(
-        torch.as_tensor(csr.indptr.astype(np.int32)),
-        torch.as_tensor(csr.indices.astype(np.int32)),
-        torch.as_tensor(csr.data.astype(np.float32)), size=csr.shape,
-        device=x.device)
+    S = sparse_csr(torch, A, x.device)
     err = rel_err(torch.mv(S, x), K.csr_spmv(op, x, op.diag))
     lib_ms = time_ms(torch, lambda: torch.mv(S, x), 200)
     print(f"  library torch.mv(sparse_csr A, x) at {label}: {lib_ms:.5f} ms "
@@ -260,6 +285,48 @@ def library_spmv_ms(torch, A, op, x, K, label):
         raise RuntimeError(f"sparse_csr product disagrees with csr_spmv: "
                            f"{err}")
     return lib_ms
+
+
+def host_residuals(A, X, B):
+    """Each column's host f64 relative residual ||A x_j - b_j|| / ||b_j||."""
+    csr = A.csr
+    rows = csr.row_of_entry()
+    return np.array([
+        np.linalg.norm(np.bincount(rows, weights=csr.data * X[csr.indices, j],
+                                   minlength=A.shape[0]) - B[:, j])
+        / np.linalg.norm(B[:, j]) for j in range(B.shape[1])])
+
+
+def host_steps_ms(torch, Bm, dev):
+    """Wall ms of the host-side steps of one solve_batch call around its
+    batch loop: the column norms, B's f64->f32 conversion and upload, and
+    X's download and f32->f64 conversion (X taken the size of B)."""
+    from sublinear_tpu_torch.config import to_device
+
+    out, t0 = {}, time.perf_counter()
+    np.linalg.norm(Bm, axis=0)
+    t1 = time.perf_counter()
+    B_dev = to_device(Bm, torch.float32, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    X = B_dev.cpu()
+    t3 = time.perf_counter()
+    X.numpy().astype(np.float64)
+    t4 = time.perf_counter()
+    for name, a, b in (("norms", t0, t1), ("to f32 + upload", t1, t2),
+                       ("download", t2, t3), ("to f64", t3, t4)):
+        out[name] = round((b - a) * 1e3, 3)
+    return out
+
+
+def in_turns(torch, kern, plain, reps):
+    """Mean CUDA-event ms per call of kern and of plain, timed in turns
+    (plain, kernel, kernel, plain), and the four readings."""
+    turns = {"kernel": [], "plain": []}
+    for label in ("plain", "kernel", "kernel", "plain"):
+        turns[label].append(time_ms(
+            torch, kern if label == "kernel" else plain, reps))
+    return (sum(turns["kernel"]) / 2, sum(turns["plain"]) / 2, turns)
 
 
 def reset(*modules):
@@ -407,16 +474,11 @@ def main() -> int:
         print(f"  {label}: verified rel residual {res:.3e}", flush=True)
         if not res <= CHAIN_RTOL:
             raise RuntimeError(f"{label} chain residual {res} > {CHAIN_RTOL}")
-    # in turns: plain, kernel, kernel, plain
-    turns = {"kernel": [], "plain": []}
-    for label in ("plain", "kernel", "kernel", "plain"):
-        fn = chain_kernel if label == "kernel" else chain_plain
-        turns[label].append(time_ms(torch, fn, 100))
-    solve_ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    k_ms, p_ms, turns = in_turns(torch, chain_kernel, chain_plain, 100)
     print(f"  per verified solve ms: kernel {turns['kernel']} plain "
           f"{turns['plain']}", flush=True)
-    ms["neumann_step"] = solve_ms["kernel"] / CHAIN_ITERS
-    plain_ms["neumann_step"] = solve_ms["plain"] / CHAIN_ITERS
+    ms["neumann_step"] = k_ms / CHAIN_ITERS
+    plain_ms["neumann_step"] = p_ms / CHAIN_ITERS
 
     phase(f"6 solve(method='neumann') at n={N_LARGE}")
     t0 = time.perf_counter()
@@ -491,15 +553,12 @@ def main() -> int:
             if not rel <= CG_RTOL:
                 raise RuntimeError(f"cg_step {label} {name}: {rel} > "
                                    f"{CG_RTOL}")
-    turns = {"kernel": [], "plain": []}
-    for label in ("plain", "kernel", "kernel", "plain"):
-        fn = K.cg_chain if label == "kernel" else K.cg_chain_plain
-        turns[label].append(time_ms(
-            torch, lambda: fn(sop, *cg0, CG_ITERS), 20) / CG_ITERS)
-    print(f"  per CG step ms: kernel {turns['kernel']} plain "
-          f"{turns['plain']}", flush=True)
-    ms["cg_step"] = sum(turns["kernel"]) / 2
-    plain_ms["cg_step"] = sum(turns["plain"]) / 2
+    k_ms, p_ms, turns = in_turns(
+        torch, lambda: K.cg_chain(sop, *cg0, CG_ITERS),
+        lambda: K.cg_chain_plain(sop, *cg0, CG_ITERS), 20)
+    print(f"  per CG chain of {CG_ITERS} steps ms: kernel {turns['kernel']} "
+          f"plain {turns['plain']}", flush=True)
+    ms["cg_step"], plain_ms["cg_step"] = k_ms / CG_ITERS, p_ms / CG_ITERS
     nnz_s = sop.indices.numel()
     # one step: the matrix, diag, inv_d, x, r, p read; x, r, p written
     bounds["cg_step"] = bound(4 * (N_MAIN + 1) + 8 * nnz_s + 32 * N_MAIN,
@@ -657,11 +716,7 @@ def main() -> int:
                                f"version: {rel} > {limit}")
         if B != 1:
             continue
-        turns = {"kernel": [], "plain": []}
-        for label in ("kernel", "plain", "plain", "kernel"):
-            turns[label].append(time_ms(
-                torch, kern if label == "kernel" else plain, 50))
-        k_ms, p_ms = (sum(turns[k]) / 2 for k in ("kernel", "plain"))
+        k_ms, p_ms, turns = in_turns(torch, kern, plain, 50)
         b_ms, b_by = dense_bound(name, n, B, DENSE_ITERS)
         print(f"  {name} n={n} B=1 ms per call: kernel {turns['kernel']} "
               f"plain {turns['plain']}; bound {b_ms:.5f} ms ({b_by}), "
@@ -721,6 +776,149 @@ def main() -> int:
                           args.trace / "fused_solve_n768.json")
     # on no path of the port or of the JAX package (tests only)
     launches["dense_jacobi_fused"] = launches["dense_power_fused"] = 0
+
+    phase(f"15 csr_spmm vs plain at n={N_MAIN}, B in {SPMM_WIDTHS}")
+    from sublinear_tpu_torch.ops import tiled_spmm as TS
+    from sublinear_tpu_torch.parallel import sharded as PS
+
+    if A._op_kind(batch=True) != "csr" or A.op(batch=True) is not op:
+        raise RuntimeError(f"the n={N_MAIN} batch routes to "
+                           f"{A._op_kind(batch=True)!r}, not 'csr'")
+    f32 = torch.float32
+    S_lib = sparse_csr(torch, A, dev)
+    errs["csr_spmm"] = []
+
+    def check_spmm(label, got, want, again):
+        rel = rel_err(got, want)
+        errs["csr_spmm"].append((label, rel, float((got - want).abs().max())))
+        print(f"  csr_spmm {label}: max rel err {rel:.3e}", flush=True)
+        if not rel <= KERNEL_RTOL:
+            raise RuntimeError(f"csr_spmm {label} disagrees with its plain "
+                               f"version: {rel} > {KERNEL_RTOL}")
+        if not torch.equal(got, again):
+            raise RuntimeError(f"csr_spmm {label}: two runs differ")
+
+    for B in SPMM_WIDTHS:
+        X = torch.as_tensor(rng.standard_normal((N_MAIN, B)), dtype=f32,
+                            device=dev)
+        kern = lambda: op.matmat(X)
+        plain = lambda: K.csr_spmm_plain(op, X, op.diag)
+        lib = lambda: torch.sparse.mm(S_lib, X)
+        check_spmm(f"matmat B={B}", kern(), plain(), kern())
+        lib_err = rel_err(lib(), kern())
+        if not lib_err <= KERNEL_RTOL:
+            raise RuntimeError(f"torch.sparse.mm disagrees with csr_spmm at "
+                               f"B={B}: {lib_err}")
+        k_ms, p_ms, turns = in_turns(torch, kern, plain, 50)
+        lib_ms = time_ms(torch, lib, 50)
+        # indptr, off-diagonal indices and values, diag, X read once; Y
+        # written once
+        b_ms, b_by = bound(4 * (N_MAIN + 1) + 8 * nnz_off + 4 * N_MAIN
+                           + 8 * N_MAIN * B,
+                           SPMM_OPS["f32"] * nnz_off * B + 2 * N_MAIN * B)
+        print(f"  csr_spmm matmat B={B} ms per call: kernel {turns['kernel']}"
+              f" plain {turns['plain']}; cuSPARSE SpMM (torch.sparse.mm) "
+              f"{lib_ms:.5f} (max rel diff {lib_err:.3e}); bound "
+              f"{b_ms:.5f} ms ({b_by}), {b_ms / k_ms:.3f} of it", flush=True)
+        if B == N_RHS:
+            ms["csr_spmm"], plain_ms["csr_spmm"] = k_ms, p_ms
+            library_ms["csr_spmm"] = lib_ms
+            bounds["csr_spmm"] = (b_ms, b_by)
+    del X, S_lib
+    t0 = time.perf_counter()
+    tiles = TS.build_tiles(A.csr)
+    nnz_all = tiles.csr.indices.numel()
+    print(f"  build_tiles seconds {time.perf_counter() - t0:.2f}: "
+          f"{tiles.n_tiles} tiles of {tiles.T}, fill {tiles.fill:.4f}, "
+          f"n_pad {tiles.n_pad}, entries {nnz_all}", flush=True)
+    Xp = torch.zeros((tiles.m_pad, N_RHS), dtype=f32, device=dev)
+    Xp[:N_MAIN] = torch.as_tensor(rng.standard_normal((N_MAIN, N_RHS)),
+                                  dtype=f32, device=dev)
+    for precise in (True, False):
+        kern = lambda: TS.onehot_spmm(tiles, Xp, precise)
+        plain = lambda: TS.onehot_spmm_plain(tiles, Xp, precise)
+        label = f"onehot_spmm precise={precise} B={N_RHS}"
+        check_spmm(label, kern(), plain(), kern())
+        k_ms, p_ms, turns = in_turns(torch, kern, plain, 20)
+        b_ms, b_by = bound(4 * (tiles.n_pad + 1) + 8 * nnz_all
+                           + 4 * (tiles.m_pad + tiles.n_pad) * N_RHS,
+                           SPMM_OPS["split" if precise else "bf16"]
+                           * nnz_all * N_RHS)
+        print(f"  {label} ms per call: kernel {turns['kernel']} plain "
+              f"{turns['plain']}; bound {b_ms:.5f} ms ({b_by}), "
+              f"{b_ms / k_ms:.3f} of it", flush=True)
+    del tiles, Xp
+
+    phase(f"16 solve_batch at n={N_MAIN} with {N_RHS} RHS, epsilon 1e-6")
+    Bm = np.random.default_rng(0).standard_normal((N_MAIN, N_RHS))
+    opts = slt.SolverOptions(epsilon=1e-6)
+    for label, M, method, expect in (
+            ("headline", A, "neumann", "neumann-batch"),
+            ("SPD", S, "auto", "cg-batch")):
+        reset(K)
+        results = PS.solve_batch(M, Bm, opts, method=method)
+        counts = dict(K.LAUNCHES)
+        iters = results[0].iterations
+        X = np.stack([r.solution for r in results], axis=1)
+        rels = host_residuals(M, X, Bm)
+        # the Neumann batch counts its seed term as iteration 1 and skips the
+        # product of X0 = 0; CG multiplies X0 = 0 once
+        want = iters + (expect == "cg-batch")
+        if not (len(results) == N_RHS and X.shape == Bm.shape
+                and np.all(np.isfinite(X)) and rels.max() < SOLVE_RTOL
+                and all(r.converged and r.method == expect
+                        and r.iterations == iters for r in results)
+                and counts["csr_spmm"] == want and not counts["neumann_step"]):
+            raise RuntimeError(
+                f"solve_batch {label} {method}: methods "
+                f"{sorted({r.method for r in results})} converged "
+                f"{sum(r.converged for r in results)}/{len(results)} "
+                f"iterations={iters} max host rel residual {rels.max()} "
+                f"launches {counts} (csr_spmm expected {want})")
+        if expect == "neumann-batch":
+            launches["csr_spmm"] = counts["csr_spmm"]
+        warm = warm_ms(torch, lambda: PS.solve_batch(M, Bm, opts,
+                                                     method=method), 3)
+        bop = M.op(batch=True)
+        B_dev = torch.as_tensor(Bm, dtype=f32, device=dev)
+        thr = (1e-6 * np.linalg.norm(Bm, axis=0)).astype(np.float32)
+        run = (PS._neumann_batch_run if expect == "neumann-batch"
+               else PS._cg_batch_run)
+        loop = warm_ms(torch, lambda: run(bop, B_dev, thr, 1000), 3)
+        print(f"{label} method={method}: ran {expect}, iterations={iters} max "
+              f"host f64 rel residual={rels.max():.3e} launches={counts}; warm"
+              f" solve_batch ms per batch {' '.join(f'{t:.4f}' for t in warm)}"
+              f", per RHS {' '.join(f'{t / N_RHS:.5f}' for t in warm)}; the "
+              f"batch loop alone (B on the card) ms "
+              f"{' '.join(f'{t:.4f}' for t in loop)}", flush=True)
+        del B_dev
+        if expect == "neumann-batch":
+            print(f"  host steps of one call, wall ms (2 runs): "
+                  f"{host_steps_ms(torch, Bm, dev)} "
+                  f"{host_steps_ms(torch, Bm, dev)}", flush=True)
+        if args.trace is not None and expect == "neumann-batch":
+            profile_solve(torch, lambda: PS.solve_batch(A, Bm, opts,
+                                                        method="neumann"),
+                          args.trace / "batch_neumann_n100k.json")
+
+    phase(f"17 small-batch chain path: {N_RHS_CHAIN} RHS at n={N_MAIN}")
+    B_small = Bm[:, :N_RHS_CHAIN]
+    reset(K)
+    results = PS.solve_batch(A, B_small, opts, method="neumann")
+    counts = dict(K.LAUNCHES)
+    X = np.stack([r.solution for r in results], axis=1)
+    rels = host_residuals(A, X, B_small)
+    if not (all(r.converged and r.method == "neumann-batch" for r in results)
+            and np.all(np.isfinite(X)) and rels.max() < SOLVE_RTOL
+            and counts["neumann_step"] and not counts["csr_spmm"]):
+        raise RuntimeError(f"small batch: converged "
+                           f"{sum(r.converged for r in results)} max host rel"
+                           f" residual {rels.max()} launches {counts}")
+    warm = warm_ms(torch, lambda: PS.solve_batch(A, B_small, opts,
+                                                 method="neumann"), 3)
+    print(f"iterations={results[0].iterations} max host f64 rel residual="
+          f"{rels.max():.3e} launches={counts}; warm ms per batch "
+          f"{' '.join(f'{t:.4f}' for t in warm)}", flush=True)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -8,6 +8,14 @@ sparse, else dense for n <= ``DENSE_THRESHOLD``, else ELL.  The sparse
 kernel has no size ceiling: the TPU-geometry test the JAX package applies
 (``xbar_feasible``) is not ported, so n = 1M takes ``"csr"`` where the JAX
 package falls back to ELL.
+
+The batch route (``op(batch=True)``, the multi-RHS product of
+``solve_batch``) differs on purpose too.  The JAX package never batches on
+its crossbar operator, so a large sparse matrix takes ELL there.  The port's
+``"csr"`` operator has a batched product (``CsrOperator.matmat``, the
+``csr_spmm`` kernel that replaces ``onehot_spmm``), so above
+``DENSE_THRESHOLD`` a large sparse matrix takes ``"csr"`` for batches too;
+at and below it both packages keep the dense route.
 """
 from __future__ import annotations
 
@@ -145,16 +153,18 @@ class Matrix:
             return self._prefer
         if self._dia_eligible() is not None:
             return "dia"
-        # single-RHS large sparse: the CSR kernels
-        if not batch and self._csr_eligible():
+        # large sparse: the CSR kernels; a batch keeps the dense route where
+        # the matrix is small enough for it
+        if self._csr_eligible() and not (batch and self._use_dense()):
             return "csr"
         return "dense" if self._use_dense() else "ell"
 
     def op(self, dtype=None, transpose: bool = False, batch: bool = False):
         """Device operator (cached per (dtype, transpose, kind)).
 
-        ``batch=True`` asks for the multi-RHS product path, which the
-        single-RHS CSR operator does not serve."""
+        ``batch=True`` asks for the multi-RHS product path (``matmat``):
+        a large sparse matrix below ``DENSE_THRESHOLD`` takes the dense
+        operator there instead of ``"csr"``."""
         dt = config.resolve_dtype(dtype)
         kind = self._op_kind(batch=batch)
         key = (str(dt), bool(transpose), kind)

@@ -39,6 +39,9 @@ SIGNATURES = {
         "slt_dense_jacobi": [_I, _I, _I] + [_P] * 5 + [_I] + [_P] * 3,
         "slt_dense_power": [_I, _I, _I] + [_P] * 3 + [_F, _F, _I] + [_P] * 4,
     },
+    "spmm_kernels": {
+        "slt_csr_spmm": [_I, _I, _I, _I] + [_P] * 7,
+    },
 }
 
 _lock = threading.Lock()

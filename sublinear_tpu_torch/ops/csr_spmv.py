@@ -1,4 +1,4 @@
-"""Diagonal-split CSR operator and its two hand-written CUDA kernels.
+"""Diagonal-split CSR operator and its hand-written CUDA kernels.
 
 ``CsrOperator`` is the port's counterpart of
 ``sublinear_tpu/ops/xbar.py::XbarOperator``.  It keeps that operator's
@@ -18,10 +18,15 @@ Kernels (``csrc/csr_kernels.cu``, built by ``ops/_kernels.py``):
                     launches: product and p.q, update and r.z, direction);
                     ``cg_chain`` runs it ``iters`` times on the current
                     stream.
+Kernel (``csrc/spmm_kernels.cu``):
+  ``csr_spmm``      Y = R X (+ diag * X) for a block of columns X (m, B),
+                    with the f32 product (``CsrOperator.matmat``, the batch
+                    path) or ``onehot_spmm``'s two bf16 products
+                    (``ops/tiled_spmm.py``): replaces ``onehot_spmm``.
 Each has a plain PyTorch version beside it (``csr_spmv_plain``,
-``neumann_chain_plain``, ``cg_chain_plain``).  A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts
-kernel launches (one ``cg_step`` count per CG step).
+``neumann_chain_plain``, ``cg_chain_plain``, ``csr_spmm_plain``).  A CPU
+tensor takes the plain version; a CUDA tensor launches the kernel or raises.
+``LAUNCHES`` counts kernel launches (one ``cg_step`` count per CG step).
 """
 from __future__ import annotations
 
@@ -31,8 +36,11 @@ import torch
 from ..config import to_device
 from ..formats.csr import CSR
 from ._kernels import library, ptr, raise_on, stream_of
+from .dense_fused import split_bf16
 
-LAUNCHES = {"csr_spmv": 0, "neumann_step": 0, "cg_step": 0}
+LAUNCHES = {"csr_spmv": 0, "neumann_step": 0, "cg_step": 0, "csr_spmm": 0}
+# csr_spmm's products: f32, onehot_spmm(precise=True), onehot_spmm(precise=False)
+SPMM_MODES = {"f32": 0, "split": 1, "bf16": 2}
 
 _INT32_LIMIT = 2**31
 TINY = 1e-30  # _cg_chain_call's guard on p.q and rz
@@ -83,6 +91,12 @@ class CsrOperator:
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         diag = self.diag if self.diag_split else None
         return csr_spmv(self, x.to(torch.float32), diag).to(x.dtype)
+
+    def matmat(self, X: torch.Tensor) -> torch.Tensor:
+        """Y = A X for a block of columns X (m, B), through ``csr_spmm``."""
+        diag = self.diag if self.diag_split else None
+        return csr_spmm(self, X.to(torch.float32).contiguous(), diag,
+                        "f32").to(X.dtype)
 
     def offdiag_matvec(self, x: torch.Tensor) -> torch.Tensor:
         if self.diag_split:
@@ -186,6 +200,36 @@ def csr_spmv_plain(op: CsrOperator, x: torch.Tensor, diag=None):
     return y
 
 
+def _check_mode(mode: str):
+    if mode not in SPMM_MODES:
+        raise ValueError(f"mode must be one of {sorted(SPMM_MODES)}, got "
+                         f"{mode!r}")
+
+
+def csr_spmm_plain(op: CsrOperator, X: torch.Tensor, diag=None,
+                   mode: str = "f32"):
+    """Y = R X (+ diag * X) with index_select / index_add_; ``mode`` picks
+    the product of each stored entry as ``csr_spmm`` documents (the bf16
+    modes in f32, with the JAX package's bf16 splits)."""
+    _check_mode(mode)
+    v, Xg = op.vals[:, None], X.index_select(0, op.indices)
+    if mode == "f32":
+        P = v * Xg
+    elif mode == "split":
+        (vh, vl), (xh, xl) = ([h.float() for h in split_bf16(a)]
+                              for a in (v, Xg))
+        ph, plo = split_bf16(vh * xh + vh * xl + vl * xh)
+        P = ph.float() + plo.float()
+    else:
+        vh, xh = split_bf16(v)[0].float(), split_bf16(Xg)[0].float()
+        P = split_bf16(vh * xh)[0].float()
+    Y = torch.zeros((op.n_pad, X.shape[1]), dtype=X.dtype, device=X.device)
+    Y.index_add_(0, op.row_ids, P)
+    if diag is not None:
+        Y = Y + diag[:, None] * X[: op.n_pad]
+    return Y
+
+
 def neumann_chain_plain(op: CsrOperator, term0: torch.Tensor, iters: int,
                         with_residual=False):
     """The chain of ``neumann_step`` passes, in plain PyTorch."""
@@ -232,10 +276,11 @@ def cg_chain_plain(op: CsrOperator, x, r, p, rz, iters: int):
 
 # ---------------------------------------------------------------- kernels
 
-def _check_operands(op: CsrOperator, **vectors):
-    """Raise unless the operator's arrays and the ``name=(tensor, length)``
-    vectors are what the kernels take: contiguous 1-D int32 / f32 tensors of
-    the right lengths on one CUDA device (None vectors are skipped)."""
+def _check_operands(op: CsrOperator, **operands):
+    """Raise unless the operator's arrays and the ``name=(tensor, shape)``
+    operands are what the kernels take: contiguous int32 / f32 tensors of
+    the right shapes on one CUDA device (a shape is a length or a tuple;
+    None tensors are skipped)."""
     dev = op.vals.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel operands on {dev}")
@@ -247,15 +292,16 @@ def _check_operands(op: CsrOperator, **vectors):
     expected = {"indptr": (op.indptr, torch.int32, op.n_pad + 1),
                 "indices": (op.indices, torch.int32, nnz),
                 "vals": (op.vals, torch.float32, nnz)}
-    expected.update((name, (t, torch.float32, length))
-                    for name, (t, length) in vectors.items() if t is not None)
-    for name, (t, dtype, length) in expected.items():
-        if (t.device != dev or t.dtype != dtype or t.shape != (length,)
+    expected.update((name, (t, torch.float32, shape))
+                    for name, (t, shape) in operands.items() if t is not None)
+    for name, (t, dtype, shape) in expected.items():
+        shape = shape if isinstance(shape, tuple) else (shape,)
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(
                 f"{name}: {t.dtype} {tuple(t.shape)} on {t.device} "
                 f"(contiguous={t.is_contiguous()}); the kernel takes "
-                f"contiguous {dtype} ({length},) on {dev}")
+                f"contiguous {dtype} {shape} on {dev}")
 
 
 def csr_spmv(op: CsrOperator, x: torch.Tensor, diag=None) -> torch.Tensor:
@@ -273,6 +319,33 @@ def csr_spmv(op: CsrOperator, x: torch.Tensor, diag=None) -> torch.Tensor:
         ptr(op.vals), ptr(x), ptr(diag), ptr(y), stream_of(x))
     raise_on(rc, "csr_spmv", lib)
     return y
+
+
+def csr_spmm(op: CsrOperator, X: torch.Tensor, diag=None,
+             mode: str = "f32") -> torch.Tensor:
+    """Y (n_pad, B) = R X, plus diag[:, None] * X when ``diag`` is given, for
+    X (m_pad, B) f32.  ``mode``: "f32" (v * x), "split" (onehot_spmm's
+    precise bf16 hi/lo product) or "bf16" (bf16(bf16(v) * bf16(x)))."""
+    _check_mode(mode)
+    if X.dim() != 2 or X.shape[0] != op.m_pad or X.shape[1] < 1:
+        raise ValueError(f"X must be (m={op.m_pad}, B) with B >= 1, got "
+                         f"{tuple(X.shape)}")
+    if X.device.type == "cpu":
+        return csr_spmm_plain(op, X, diag, mode)
+
+    n, B = op.n_pad, X.shape[1]
+    if diag is not None and op.m_pad != n:
+        raise ValueError(f"diag needs a square operator, got {op.shape}")
+    _check_operands(op, X=(X, (op.m_pad, B)), diag=(diag, n))
+    lib = library("spmm_kernels")
+    Y = torch.empty((n, B), dtype=torch.float32, device=X.device)
+    LAUNCHES["csr_spmm"] += 1
+    rc = lib.slt_csr_spmm(
+        X.device.index or 0, SPMM_MODES[mode], n, B, ptr(op.indptr),
+        ptr(op.indices), ptr(op.vals), ptr(X), ptr(diag), ptr(Y),
+        stream_of(X))
+    raise_on(rc, "csr_spmm", lib)
+    return Y
 
 
 def neumann_chain(op: CsrOperator, term0: torch.Tensor, iters: int,

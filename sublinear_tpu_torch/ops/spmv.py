@@ -5,10 +5,12 @@ The JAX package computes these with ``jnp.take``, ``einsum``,
 Pallas kernel; here they are plain PyTorch in full float32 (``config``
 turns TF32 off).  Slot-major ELL: ``values``/``cols`` of shape ``(K, n)``,
 padded slots pointing at column 0 with value 0; the COO tail holds the
-entries beyond the slot cap, rows sorted.  Not ported: ``ell_matvec_wide``
-(a TPU gather-engine trick) and the batch-major ``_bmajor`` variants (they
-belong to ``solve_batch``).  The sparse single-RHS product of the ``"csr"``
-route lives in ``ops/csr_spmv.py``.
+entries beyond the slot cap, rows sorted.  Not ported, as TPU-gather layout
+tricks: ``ell_matvec_wide`` (the 8-column wide gather), the batch-major
+``_bmajor`` products and ``solve_batch``'s padding of an ELL batch to at
+least 8 columns; the port's ``solve_batch`` runs n-major (X is (n, B)) on
+every operator.  The sparse products of the ``"csr"`` route, single-RHS and
+batched, live in ``ops/csr_spmv.py``.
 """
 from __future__ import annotations
 

@@ -7,8 +7,9 @@ fixture, not at import).  On a machine with a card and without jax, run
 
 (``--noconftest`` because tests/conftest.py imports jax).  This file imports
 only the port.  Tolerance: max |kernel - plain| <= 1e-5 * max |plain| (f32
-sums taken in another order), 1e-4 for the CG chain and for bf16x3 (its
-bf16 split of t can round the other way).
+sums taken in another order; for csr_spmm's bf16 modes the same per-entry
+roundings, summed in another order), 1e-4 for the CG chain and for bf16x3
+(its bf16 split of t can round the other way).
 """
 import numpy as np
 import pytest
@@ -16,7 +17,10 @@ import torch
 
 import sublinear_tpu_torch as slp
 from sublinear_tpu_torch.ops import csr_spmv as K
+from sublinear_tpu_torch.formats.csr import CSR
 from sublinear_tpu_torch.ops import dense_fused as DF
+from sublinear_tpu_torch.ops import tiled_spmm as TS
+from sublinear_tpu_torch.parallel.sharded import solve_batch
 from sublinear_tpu_torch.solvers.fused import solve_neumann_fused
 
 torch.set_num_threads(2)
@@ -210,3 +214,90 @@ def test_solve_neumann_fused_on_card(card, n, eps, method):
     rel = np.linalg.norm(a.csr.matvec(r.solution) - b) / np.linalg.norm(b)
     assert r.converged and r.method == method and rel < 10 * eps
     assert DF.LAUNCHES[name] > before
+
+
+EMPTY_ROW, HUB_ROW = 7, 11
+
+
+@pytest.fixture(scope="module")
+def spmm_op():
+    """A seeded n=20,000 operator with about 8 entries per row, row 7 with
+    no entries at all and row 11 a hub of 5000 off-diagonal entries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n = 20_000
+    rng = np.random.default_rng(7)
+    rows, cols = rng.integers(0, n, 8 * n), rng.integers(0, n, 8 * n)
+    hub = rng.choice(n, 5000, replace=False)
+    d = np.arange(n)
+    rows = np.r_[rows, np.full(5000, HUB_ROW), d]
+    cols = np.r_[cols, hub, d]
+    vals = rng.uniform(-1, 1, rows.size)
+    vals[-n:] = 10.0
+    keep = rows != EMPTY_ROW
+    csr = CSR.from_coo(rows[keep], cols[keep], vals[keep], (n, n))
+    op = slp.Matrix(csr).op(batch=True)
+    assert type(op).__name__ == "CsrOperator"
+    counts = torch.diff(op.indptr).cpu()
+    assert counts[EMPTY_ROW] == 0 and counts[HUB_ROW] >= 5000
+    return op
+
+
+@pytest.mark.parametrize("mode", sorted(K.SPMM_MODES))
+@pytest.mark.parametrize("B", [1, 3, 8, 128])
+def test_csr_spmm(spmm_op, mode, B):
+    """Every product mode against its plain version, for scalar (B = 1, 3)
+    and float4 (B = 8, 128) columns; the f32 mode with the split
+    diagonal, as CsrOperator.matmat runs it."""
+    op = spmm_op
+    rng = np.random.default_rng(B)
+    X = torch.as_tensor(rng.standard_normal((op.m_pad, B)),
+                        dtype=torch.float32, device=op.device)
+    diag = op.diag if mode == "f32" else None
+    before = K.LAUNCHES["csr_spmm"]
+    got = K.csr_spmm(op, X, diag, mode)
+    assert K.LAUNCHES["csr_spmm"] == before + 1
+    want = K.csr_spmm_plain(op, X, diag, mode)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (op.n_pad, B)
+    _close(got, want)
+    if diag is None:
+        assert not got[EMPTY_ROW].any()
+
+
+def test_csr_spmm_unaligned_block(spmm_op):
+    """A contiguous X whose start is 4 bytes off a 16-byte boundary takes
+    the scalar path even though B % 4 == 0."""
+    op = spmm_op
+    flat = torch.randn(op.m_pad * 8 + 1, device=op.device)
+    X = flat[1:].view(op.m_pad, 8)
+    _close(K.csr_spmm(op, X, op.diag), K.csr_spmm_plain(op, X, op.diag))
+    _close(op.matmat(X), K.csr_spmm_plain(op, X, op.diag))
+
+
+@pytest.mark.parametrize("precise", [True, False])
+def test_onehot_spmm_on_card(card, precise):
+    a = slp.generate("random-sparse", 3000, seed=7, density=3e-3)
+    tiles = TS.build_tiles(a.csr)
+    assert tiles.csr.device.type == "cuda"
+    X = torch.randn(tiles.m_pad, 16, device=card)
+    before = K.LAUNCHES["csr_spmm"]
+    got = TS.onehot_spmm(tiles, X, precise)
+    assert K.LAUNCHES["csr_spmm"] == before + 1
+    _close(got, TS.onehot_spmm_plain(tiles, X, precise))
+
+
+def test_solve_batch_on_card(card):
+    """A 40-RHS Neumann batch on the "csr" route: one csr_spmm launch per
+    iteration (the count starts at 1 with the seed term and the final
+    residual takes one), every column converged."""
+    a = slp.generate("random-sparse", 20_000, seed=7, density=5e-4)
+    B = np.random.default_rng(0).standard_normal((20_000, 40))
+    before = dict(K.LAUNCHES)
+    results = solve_batch(a, B, method="neumann")
+    assert K.LAUNCHES["csr_spmm"] - before["csr_spmm"] == results[0].iterations
+    assert K.LAUNCHES["neumann_step"] == before["neumann_step"]
+    for j, r in enumerate(results):
+        rel = (np.linalg.norm(a.csr.matvec(r.solution) - B[:, j])
+               / np.linalg.norm(B[:, j]))
+        assert r.converged and r.method == "neumann-batch" and rel < 1e-5

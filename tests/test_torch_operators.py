@@ -142,12 +142,18 @@ def test_ell_cg_solve_matches():
 
 
 def test_ell_routes():
-    """ELL where the JAX package takes it: a dense-ish matrix above the
-    dense size, and the batch path of a large sparse one."""
-    for n, density, batch in ((10_300, 0.021, False), (11_000, 1e-3, True)):
+    """ELL where both packages take it: a dense-ish matrix above the dense
+    size, single-RHS and batched.  The batch path of a large sparse matrix
+    is ELL in the JAX package and "csr" in the port, whose CSR operator has
+    a batched product (matrix.py's docstring)."""
+    for n, density, batch in ((10_300, 0.021, False), (10_300, 0.021, True)):
         a = slt.generate("random-sparse", n, seed=5, density=density)
         p = slp.Matrix(a.csr, device="cpu")
         assert a._op_kind(batch=batch) == p._op_kind(batch=batch) == "ell"
+    a = slt.generate("random-sparse", 11_000, seed=5, density=1e-3)
+    p = slp.Matrix(a.csr, device="cpu")
+    assert a._op_kind(batch=True) == "ell"
+    assert p._op_kind(batch=True) == "csr"
 
 
 # ------------------------------------------------------------------ E007
