@@ -10,12 +10,15 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
   2. build the CUDA kernels of sublinear_tpu_torch/csrc from source;
   3. at n=100k (random-sparse, density 1e-4, seed 7) hold each kernel to its
      plain PyTorch version on the card: matvec, offdiag_matvec and
-     neumann_chain(., 12, with_residual in {False, True, "norm"});
+     neumann_chain(., 12, with_residual in {False, True, "norm"}); then
+     csr_spmv's time per call against cuSPARSE and its bit identity with a
+     one-column csr_spmm on rows of at most SPMV_LONG_ROW entries;
   4. the main path: sublinear_tpu_torch.solve(A, b, method="neumann",
      epsilon=1e-6) at that size, with the kernels' launch counts;
   5. the bench-shaped verified solve neumann_chain(inv_d * b, 12, "norm"),
      timed per solve against the plain version;
-  6. the same solve as phase 4 at n=1M (density 1e-5);
+  6. the same solve as phase 4 at n=1M (density 1e-5), and phase 3's
+     csr_spmv checks and times at that size;
   7. the canonical library drive at n=1000 (dense route);
   8. the CG kernel against its plain version: cg_chain(., 10) on the SPD
      n=100k matrix (the headline matrix made symmetric: strict upper
@@ -41,30 +44,45 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
      "neumann"), with launch counts and warm solve times;
  15. the SpMM kernel against its plain version at n=100k: csr_spmm as
      CsrOperator.matmat runs it (f32, split diagonal) for B in {8, 128},
-     and onehot_spmm on build_tiles of the same matrix at B=128 with
-     precise in {True, False}, each timed in turns with the plain version;
+     with cuSPARSE's time and the bit identity of single columns (across the
+     column slabs) with the product of that column alone, and onehot_spmm on
+     build_tiles of the same matrix at B=128 with precise in {True, False},
+     each timed in turns with the plain version;
  16. the batch path: parallel.sharded.solve_batch at n=100k with 128 RHS
      (numpy default_rng(0) standard normal, as bench.py's batch row) and
      epsilon 1e-6, method="neumann" on the headline matrix and
      method="auto" (CG) on its SPD form, with launch counts, each column's
      host f64 residual and warm times per batch and per RHS;
  17. the small-batch path: solve_batch with 20 RHS at n=100k, which runs
-     serialized Neumann chain solves (neumann_step, no csr_spmm).
+     serialized Neumann chain solves (neumann_step, no csr_spmm);
+ 18. the figures of csr_spmv (phases 3 and 6) and csr_spmm (phase 15, f32)
+     with their device times.  They come last because a torch.profiler
+     window slows the host-bound solves that follow it in the same process
+     (BiCGSTAB, CG on the ELL route).
 
 Beside each kernel's time the script computes its bound (the least time the
 card could take: the bytes the function must move at 3.35 TB/s, or its
 operations at the card's peak for their type, whichever is larger) and, for
 csr_spmv and csr_spmm, times one PyTorch call that computes the same
 function (a CUDA torch.sparse_csr_tensor of A times x, or times X with
-torch.sparse.mm) as a yardstick the port never calls.  The last two lines
-are a JSON object with one entry per kernel and the result {"ok": true,
-"device": {...}}.  ``--trace DIR`` also profiles one warm n=100k solve each
-of Neumann, CG and BiCGSTAB, one warm n=768 fused solve and one warm
-128-RHS Neumann batch, with torch.profiler and writes the traces into DIR.
+torch.sparse.mm) as a yardstick the port never calls.  The figures of those
+two kernels: the time per back-to-back call (CUDA events, host work
+included), the device time alone (torch.profiler over a window of
+back-to-back calls, phase 18), both also for the yardstick, the bound and
+its share,
+the bytes per second achieved (the bound's bytes over the device time) and
+the L2 traffic of the gathers, computed from the shapes (a 32-byte sector
+per gathered x element for csr_spmv, 4 * B bytes per entry for csr_spmm).
+The last two lines are a JSON object with one entry per kernel and the
+result {"ok": true, "device": {...}}.  ``--trace DIR`` also profiles one
+warm n=100k solve each of Neumann, CG and BiCGSTAB, one warm n=768 fused
+solve and one warm 128-RHS Neumann batch, with torch.profiler and writes
+the traces into DIR.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -92,6 +110,8 @@ X3_RTOL = 1e-4          # bf16x3: the bf16 split of t may round the other way
 N_RHS = 128             # bench.py's batch row (bench_batch_point)
 N_RHS_CHAIN = 20        # solve_batch's serialized-chain path (<= 32 RHS)
 SPMM_WIDTHS = (8, 128)
+DEVICE_REPS = 50        # back-to-back calls in a profiled window
+SECTOR_BYTES = 32       # what L2 moves for one gathered 4-byte x element
 # f32 operations per stored entry and column of each csr_spmm product
 SPMM_OPS = {"f32": 2, "split": 9, "bf16": 2}
 # the card's published peaks (H100 SXM data sheet, 700 W)
@@ -272,19 +292,94 @@ def sparse_csr(torch, A, dev):
         device=dev)
 
 
-def library_spmv_ms(torch, A, op, x, K, label):
-    """CUDA-event ms of one cuSPARSE product y = A x through a CUDA
-    torch.sparse_csr_tensor of the full A (the diagonal included), checked
-    against csr_spmv first.  A yardstick only: the port never calls it."""
+def device_ms(torch, fn, reps=DEVICE_REPS):
+    """Mean device ms per call of ``fn``: the own time of every kernel and
+    copy on the card under torch.profiler, over ``reps`` back-to-back warm
+    calls; None when the profiler saw no device time.  The profiler now and
+    then loses records of a window, so each kernel's time is its mean over
+    the launches it recorded, times its launches per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total", 0) / e.count
+                   * max(1, round(e.count / reps))
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.count)
+    return total_us / 1e3 if total_us > 0 else None
+
+
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.5f}"
+
+
+@dataclasses.dataclass
+class Figures:
+    """One sparse product at one shape: its kernel and cuSPARSE calls, their
+    ms per call, the bytes it must move, its bound (ms, by) and the L2
+    traffic of its gathers."""
+    label: str
+    kern: object
+    lib: object
+    k_ms: float
+    lib_ms: float
+    nbytes: int
+    bound: tuple
+    l2_bytes: int
+
+    def report(self, torch):
+        """Print the figures with both device times; returns the kernel's
+        device ms."""
+        k_dev, lib_dev = device_ms(torch, self.kern), device_ms(torch,
+                                                                 self.lib)
+        t = k_dev if k_dev is not None else self.k_ms
+        b_ms, b_by = self.bound
+        print(f"  {self.label}: per call {self.k_ms:.5f} ms, device "
+              f"{fmt_ms(k_dev)} ms; cuSPARSE per call {self.lib_ms:.5f} ms, "
+              f"device {fmt_ms(lib_dev)} ms; bound {b_ms:.5f} ms ({b_by}), "
+              f"{b_ms / t:.3f} of it; {self.nbytes / t / 1e6:.1f} GB/s of "
+              f"{self.nbytes / 1e6:.2f} MB; L2 gather traffic "
+              f"{self.l2_bytes / 1e6:.1f} MB", flush=True)
+        return k_dev
+
+
+def spmv_figures(torch, K, A, op, x, label, reps):
+    """csr_spmv at one size against cuSPARSE (torch.mv of a CUDA
+    torch.sparse_csr_tensor of the full A, a yardstick the port never
+    calls), after raising unless the yardstick agrees with the kernel and,
+    on rows of at most SPMV_LONG_ROW entries, csr_spmv equals a one-column
+    csr_spmm bit for bit.  Returns the ``Figures`` phase 18 prints."""
+    n, nnz = op.n_pad, op.indices.numel()
     S = sparse_csr(torch, A, x.device)
-    err = rel_err(torch.mv(S, x), K.csr_spmv(op, x, op.diag))
-    lib_ms = time_ms(torch, lambda: torch.mv(S, x), 200)
-    print(f"  library torch.mv(sparse_csr A, x) at {label}: {lib_ms:.5f} ms "
-          f"(max rel diff from csr_spmv {err:.3e})", flush=True)
+    kern, lib = lambda: K.csr_spmv(op, x, op.diag), lambda: torch.mv(S, x)
+    err = rel_err(lib(), kern())
     if not err <= KERNEL_RTOL:
-        raise RuntimeError(f"sparse_csr product disagrees with csr_spmv: "
-                           f"{err}")
-    return lib_ms
+        raise RuntimeError(f"sparse_csr product disagrees with csr_spmv at "
+                           f"{label}: {err}")
+    short = torch.diff(op.indptr) <= K.SPMV_LONG_ROW
+    for diag in (op.diag, None):
+        y = K.csr_spmv(op, x, diag)
+        Y = K.csr_spmm(op, x[:, None].contiguous(), diag)
+        if not torch.equal(y[short], Y[short, 0]):
+            raise RuntimeError(f"csr_spmv differs from csr_spmm(x[:, None])"
+                               f" on short rows at {label}")
+    print(f"  csr_spmv == csr_spmm(x[:, None])[:, 0] bit for bit on "
+          f"{int(short.sum())} of {n} rows (the rows of at most "
+          f"{K.SPMV_LONG_ROW} entries); {op.row_blocks.numel() - 1} row "
+          f"blocks; cuSPARSE max rel diff {err:.3e}", flush=True)
+    k_ms, lib_ms = time_ms(torch, kern, reps), time_ms(torch, lib, reps)
+    print(f"  csr_spmv at {label} ms per call: kernel {k_ms:.5f}, cuSPARSE "
+          f"{lib_ms:.5f}", flush=True)
+    # indptr, off-diagonal indices and values, x, diag and y once each
+    nbytes = 4 * (n + 1) + 8 * nnz + 12 * n
+    return Figures(f"csr_spmv at {label}", kern, lib, k_ms, lib_ms, nbytes,
+                   bound(nbytes, 2 * nnz + 2 * n), SECTOR_BYTES * nnz)
 
 
 def host_residuals(A, X, B):
@@ -424,20 +519,20 @@ def main() -> int:
             if not rel <= KERNEL_RTOL:
                 raise RuntimeError(f"{name} {label} disagrees with its plain "
                                    f"version: {rel} > {KERNEL_RTOL}")
-    ms = {"csr_spmv": time_ms(torch, lambda: K.csr_spmv(op, x, op.diag), 200)}
+    # the figures phase 18 prints, by kernel, the first of each on the path
+    late = {"csr_spmv": [spmv_figures(torch, K, A, op, x, f"n={N_MAIN}",
+                                      200)]}
+    main_fig = late["csr_spmv"][0]
+    ms = {"csr_spmv": main_fig.k_ms}
+    library_ms = {"csr_spmv": main_fig.lib_ms}
+    bounds = {"csr_spmv": main_fig.bound}
     plain_ms = {"csr_spmv": time_ms(
         torch, lambda: K.csr_spmv_plain(op, x, op.diag), 200)}
-    library_ms = {"csr_spmv": library_spmv_ms(torch, A, op, x, K, "n=100k")}
     nnz_off = op.indices.numel()
-    bounds = {
-        # indptr, off-diagonal indices and values, x, diag and y once each
-        "csr_spmv": bound(4 * (N_MAIN + 1) + 8 * nnz_off + 12 * N_MAIN,
-                          2 * nnz_off + 2 * N_MAIN),
-        # one step: the matrix, t_in, inv_d and acc read, t_out and acc
-        # written
-        "neumann_step": bound(4 * (N_MAIN + 1) + 8 * nnz_off + 20 * N_MAIN,
-                              2 * nnz_off + 3 * N_MAIN),
-    }
+    # one step: the matrix, t_in, inv_d and acc read, t_out and acc written
+    bounds["neumann_step"] = bound(
+        4 * (N_MAIN + 1) + 8 * nnz_off + 20 * N_MAIN,
+        2 * nnz_off + 3 * N_MAIN)
 
     phase(f"4 main path: solve(method='neumann') at n={N_MAIN}")
     reset(K)
@@ -500,16 +595,8 @@ def main() -> int:
     print(f"iterations={r_big.iterations} host f64 rel residual="
           f"{rel_big:.3e} warm solve ms {big_ms:.4f} "
           f"neumann_step ms {step_ms:.4f}", flush=True)
-    x_big = t_big.clone()
-    spmv_big_ms = time_ms(torch, lambda: K.csr_spmv(op_big, x_big,
-                                                    op_big.diag), 50)
-    nnz_big = op_big.indices.numel()
-    spmv_big_bound, _ = bound(4 * (N_LARGE + 1) + 8 * nnz_big + 12 * N_LARGE,
-                              2 * nnz_big + 2 * N_LARGE)
-    print(f"  csr_spmv at n={N_LARGE}: {spmv_big_ms:.5f} ms, bound "
-          f"{spmv_big_bound:.5f} ms (bytes)", flush=True)
-    library_spmv_ms(torch, A_big, op_big, x_big, K, "n=1M")
-    del x_big
+    late["csr_spmv"].append(spmv_figures(torch, K, A_big, op_big,
+                                         t_big.clone(), f"n={N_LARGE}", 50))
 
     phase("7 canonical drive at n=1000 (dense route)")
     A1 = slt.generate("random-sparse", 1000, seed=7, density=0.001)
@@ -787,6 +874,7 @@ def main() -> int:
     f32 = torch.float32
     S_lib = sparse_csr(torch, A, dev)
     errs["csr_spmm"] = []
+    late["csr_spmm"] = []
 
     def check_spmm(label, got, want, again):
         rel = rel_err(got, want)
@@ -801,30 +889,42 @@ def main() -> int:
     for B in SPMM_WIDTHS:
         X = torch.as_tensor(rng.standard_normal((N_MAIN, B)), dtype=f32,
                             device=dev)
-        kern = lambda: op.matmat(X)
+        kern = lambda X=X: op.matmat(X)
         plain = lambda: K.csr_spmm_plain(op, X, op.diag)
-        lib = lambda: torch.sparse.mm(S_lib, X)
-        check_spmm(f"matmat B={B}", kern(), plain(), kern())
-        lib_err = rel_err(lib(), kern())
+        lib = lambda X=X: torch.sparse.mm(S_lib, X)
+        Y = kern()
+        check_spmm(f"matmat B={B}", Y, plain(), kern())
+        lib_err = rel_err(lib(), Y)
         if not lib_err <= KERNEL_RTOL:
             raise RuntimeError(f"torch.sparse.mm disagrees with csr_spmm at "
                                f"B={B}: {lib_err}")
+        cols = sorted({0, min(31, B - 1), min(32, B - 1), B - 1})
+        for s in cols:
+            one = K.csr_spmm(op, X[:, s:s + 1].contiguous(), op.diag)
+            if not torch.equal(Y[:, s], one[:, 0]):
+                raise RuntimeError(f"csr_spmm B={B}: column {s} differs from"
+                                   f" the product of that column alone")
+        print(f"  csr_spmm B={B}: columns {cols} equal the product of each "
+              f"column alone bit for bit", flush=True)
         k_ms, p_ms, turns = in_turns(torch, kern, plain, 50)
         lib_ms = time_ms(torch, lib, 50)
         # indptr, off-diagonal indices and values, diag, X read once; Y
         # written once
-        b_ms, b_by = bound(4 * (N_MAIN + 1) + 8 * nnz_off + 4 * N_MAIN
-                           + 8 * N_MAIN * B,
-                           SPMM_OPS["f32"] * nnz_off * B + 2 * N_MAIN * B)
+        nbytes = (4 * (N_MAIN + 1) + 8 * nnz_off + 4 * N_MAIN
+                  + 8 * N_MAIN * B)
+        fig = Figures(f"csr_spmm matmat B={B}", kern, lib, k_ms, lib_ms,
+                      nbytes, bound(nbytes, SPMM_OPS["f32"] * nnz_off * B
+                                    + 2 * N_MAIN * B), 4 * B * nnz_off)
         print(f"  csr_spmm matmat B={B} ms per call: kernel {turns['kernel']}"
               f" plain {turns['plain']}; cuSPARSE SpMM (torch.sparse.mm) "
-              f"{lib_ms:.5f} (max rel diff {lib_err:.3e}); bound "
-              f"{b_ms:.5f} ms ({b_by}), {b_ms / k_ms:.3f} of it", flush=True)
+              f"{lib_ms:.5f}", flush=True)
         if B == N_RHS:
+            late["csr_spmm"].insert(0, fig)
             ms["csr_spmm"], plain_ms["csr_spmm"] = k_ms, p_ms
             library_ms["csr_spmm"] = lib_ms
-            bounds["csr_spmm"] = (b_ms, b_by)
-    del X, S_lib
+            bounds["csr_spmm"] = fig.bound
+        else:
+            late["csr_spmm"].append(fig)
     t0 = time.perf_counter()
     tiles = TS.build_tiles(A.csr)
     nnz_all = tiles.csr.indices.numel()
@@ -920,6 +1020,10 @@ def main() -> int:
           f"{rels.max():.3e} launches={counts}; warm ms per batch "
           f"{' '.join(f'{t:.4f}' for t in warm)}", flush=True)
 
+    phase("18 device times of the sparse products (torch.profiler)")
+    dev_ms = {name: [fig.report(torch) for fig in figs][0]
+              for name, figs in late.items()}
+
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         b_ms, b_by = bounds[name]
@@ -930,6 +1034,7 @@ def main() -> int:
             "ms": ms[name], "plain_ms": plain_ms[name],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms.get(name),
+            "device_ms": dev_ms.get(name),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

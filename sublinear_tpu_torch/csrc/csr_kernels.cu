@@ -22,22 +22,47 @@
 // What bounds them on an H100: bytes, not arithmetic (2 flops per entry).
 // One product streams about 8 B per stored entry of CSR (a 4 B column index
 // and a 4 B value), gathers one 4 B x[col] per entry, and touches about 16 B
-// per row of vectors (row pointer, y or t_out, acc, inv_d).  At the slice's
-// n = 100k, density 1e-4 that is ~9 MB of matrix and ~2 MB of vectors.
+// per row of vectors (row pointer, y or t_out, acc, inv_d).  At n = 100k,
+// density 1e-4 that is ~9 MB of matrix and ~2 MB of vectors; at n = 1M,
+// density 1e-5, ~80 MB of matrix, more than the 50 MB L2.  Each gather of
+// x[col] also moves a whole 32-byte L2 sector for its 4 bytes: ~320 MB of L2
+// traffic at n = 1M beside the ~96 MB the product must stream from HBM, so
+// once the stream runs at the HBM rate the L2 is the likely ceiling.
 //
-// What the design does about it:
-//   - a group of kGroup = 8 lanes per row: rows hold ~10 off-diagonal entries
-//     at the slice's density, so the group reads one row's indices and values
-//     in one or two coalesced sweeps and reduces with __shfl_down_sync, in
-//     f32 (the precision of the JAX package's kernels);
-//   - x is gathered through the read-only cache (__ldg); the whole matrix of
-//     the n = 100k slice (~9 MB) stays in the 50 MB L2 across the launches of
-//     one chain, as the TPU kernel kept its tables resident in VMEM;
-//   - the chain's norm is reduced inside the kernel (warp shuffle, then a
-//     shared-memory block sum, then one atomicAdd(double*) per block), so the
-//     verified solve reads back one scalar.
-// A persistent grid-synchronised chain kernel, CUDA graphs, cp.async/TMA and
-// a tuned row split are left to later work.
+// csr_spmv streams contiguous ranges of entries (CSR-stream, as in
+// CSR-Adaptive).  ops/csr_spmv.py::spmv_row_blocks cuts the rows into blocks
+// of consecutive rows holding at most kTile off-diagonal entries and at most
+// kTileRows rows; a row of more than kLongRow entries is a block of its own.
+// One thread block of kStreamThreads threads serves one row block:
+//   - short rows: every thread loads kPerThread (index, value) pairs of the
+//     block's entry range with independent coalesced loads, then issues its
+//     kPerThread gathers of x, each batch before any of it is used, so that
+//     8 loads and then 4 gathers per thread are in flight to cover HBM
+//     latency; the values and gathered x go to shared memory, and then one
+//     thread per row sums its row as an fmaf chain in CSR order from 0.
+//     That is the order csr_spmm takes for each column, so for such rows
+//     csr_spmv(x) equals csr_spmm(x[:, None])[:, 0] bit for bit;
+//   - a long row: every thread sums its share (entries t, t + kStreamThreads,
+//     ...) in CSR order, then a fixed shuffle tree and the warps' sums in
+//     order: the same bits on every run;
+//   - the epilogue __fadd_rn(sum, __fmul_rn(diag, x)) is unchanged.
+// A block's 9 KB of shared memory lets 8 blocks (2048 threads) share an
+// SM.  Measured at n = 100k (density 1e-4) and n = 1M (density 1e-5), the
+// shapes of the Neumann and BiCGSTAB solves, on an H100 at 700 W: 0.011 ms
+// and 0.094 ms of device time, 26% and 31% of the HBM bound, about the time
+// of the bare gather of every x[col] alone (torch index_select: 0.0096 and
+// 0.090 ms); at n = 1M every tile of 512-4096 entries and block of 128-512
+// threads took 0.096-0.098 ms per back-to-back call
+// (sweep_sparse_kernels.py).  So the gathers' L2 sectors, not the stream,
+// bound it.
+//
+// neumann_step and cg_spmv_dot keep the earlier row loop (row_product): a
+// group of kGroup = 8 lanes per row reads the row's indices and values in
+// one or two coalesced sweeps and reduces with __shfl_down_sync, in f32
+// (the precision of the JAX package's kernels); x is gathered through the
+// read-only cache (__ldg).  The chain's norm is reduced inside the kernel
+// (warp shuffle, then a shared-memory block sum, then one atomicAdd(double*)
+// per block), so the verified solve reads back one scalar.
 //
 // The CG step.  On the TPU the chain's grid ran in order and carried x, r, p
 // in VMEM and rz in SMEM.  Here blocks run in no order, and each of the
@@ -79,6 +104,18 @@ constexpr int kGroup = 8;    // lanes per row
 constexpr int kBlock = 256;  // threads per block (32 rows)
 constexpr int kMaxBlocks = 2048;  // grid cap of the CG kernels
 constexpr float kTiny = 1e-30f;   // _cg_chain_call's TINY
+constexpr unsigned kFull = 0xffffffffu;
+
+// csr_spmv's row blocks: the same numbers as SPMV_TILE, SPMV_ROWS and
+// SPMV_LONG_ROW in ops/csr_spmv.py, which cuts the partition (a test holds
+// the two files to each other)
+constexpr int kStreamThreads = 256;
+constexpr int kTile = 1024;                // entries of a block of short rows
+constexpr int kTileRows = kStreamThreads;  // rows of a block: one thread each
+constexpr int kLongRow = 64;               // a longer row is a block alone
+constexpr int kPerThread = kTile / kStreamThreads;
+static_assert(kTile % kStreamThreads == 0, "whole loads per thread");
+static_assert(kLongRow <= kTile, "a short row fits a tile");
 
 // Sum over one row of vals[j] * x[indices[j]], spread over the kGroup lanes
 // of the calling thread's group.  Every thread of the block must call it
@@ -120,20 +157,98 @@ __device__ __forceinline__ void block_sum_into(double v, double* dst) {
   __syncthreads();  // warp_sums may be reused by a second call
 }
 
-__global__ void __launch_bounds__(kBlock) csr_spmv_kernel(
-    int n, const int* __restrict__ indptr, const int* __restrict__ indices,
-    const float* __restrict__ vals, const float* __restrict__ x,
-    const float* __restrict__ diag, float* __restrict__ y) {
-  const long long tid = (long long)blockIdx.x * kBlock + threadIdx.x;
-  const int row = (int)(tid / kGroup);
-  const int lane = (int)(tid % kGroup);
-  float sum = row_product(row, lane, n, indptr, indices, vals, x);
-  if (lane == 0 && row < n) {
-    if (diag != nullptr) {
-      // no FMA contraction: the same rounding as R x + diag * x
-      sum = __fadd_rn(sum, __fmul_rn(diag[row], x[row]));
+// sum + diag[row] * x[row] without FMA contraction: the same rounding as
+// R x + diag * x
+__device__ __forceinline__ float add_diag(float sum, int row,
+                                          const float* __restrict__ diag,
+                                          const float* __restrict__ x) {
+  return diag == nullptr ? sum : __fadd_rn(sum, __fmul_rn(diag[row], x[row]));
+}
+
+// One thread block per row block [row_blocks[b], row_blocks[b + 1]); see the
+// note at the top.
+__global__ void __launch_bounds__(kStreamThreads) csr_spmv_kernel(
+    const int* __restrict__ row_blocks, const int* __restrict__ indptr,
+    const int* __restrict__ indices, const float* __restrict__ vals,
+    const float* __restrict__ x, const float* __restrict__ diag,
+    float* __restrict__ y) {
+  __shared__ float s_val[kTile];
+  __shared__ float s_x[kTile];
+  __shared__ int s_ptr[kTileRows + 1];
+  __shared__ float s_warp[kStreamThreads / 32];
+  const int t = threadIdx.x;
+  const int r0 = row_blocks[blockIdx.x];
+  const int r1 = row_blocks[blockIdx.x + 1];
+  const int e0 = indptr[r0];
+  const int e1 = indptr[r1];
+  float sum = 0.0f;
+
+  if (r1 - r0 == 1 && e1 - e0 > kLongRow) {  // the same for the whole block
+    for (int base = e0; base < e1; base += kTile) {
+      int col[kPerThread];
+      float val[kPerThread], xv[kPerThread];
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        const int j = base + t + i * kStreamThreads;
+        col[i] = j < e1 ? __ldg(indices + j) : 0;
+        val[i] = j < e1 ? __ldg(vals + j) : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        const int j = base + t + i * kStreamThreads;
+        xv[i] = j < e1 ? __ldg(x + col[i]) : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        if (base + t + i * kStreamThreads < e1) sum = fmaf(val[i], xv[i], sum);
+      }
     }
-    y[row] = sum;
+#pragma unroll
+    for (int offset = 16; offset > 0; offset >>= 1) {
+      sum += __shfl_down_sync(kFull, sum, offset);
+    }
+    if ((t & 31) == 0) s_warp[t / 32] = sum;
+    __syncthreads();
+    if (t == 0) {
+      float total = s_warp[0];
+#pragma unroll
+      for (int w = 1; w < kStreamThreads / 32; ++w) total += s_warp[w];
+      y[r0] = add_diag(total, r0, diag, x);
+    }
+    return;
+  }
+
+  // a block of short rows: at most kTile entries and kTileRows rows
+  const int cnt = e1 - e0;
+  int col[kPerThread];
+  float val[kPerThread], xv[kPerThread];
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const int k = t + i * kStreamThreads;
+    col[i] = k < cnt ? __ldg(indices + e0 + k) : 0;
+    val[i] = k < cnt ? __ldg(vals + e0 + k) : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const int k = t + i * kStreamThreads;
+    xv[i] = k < cnt ? __ldg(x + col[i]) : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const int k = t + i * kStreamThreads;
+    if (k < cnt) {
+      s_val[k] = val[i];
+      s_x[k] = xv[i];
+    }
+  }
+  if (t <= r1 - r0) s_ptr[t] = indptr[r0 + t] - e0;
+  if (t == 0 && r1 - r0 == kTileRows) s_ptr[kTileRows] = cnt;
+  __syncthreads();
+  const int row = r0 + t;
+  if (row < r1) {
+    const int end = s_ptr[t + 1];
+    for (int k = s_ptr[t]; k < end; ++k) sum = fmaf(s_val[k], s_x[k], sum);
+    y[row] = add_diag(sum, row, diag, x);
   }
 }
 
@@ -231,13 +346,17 @@ int capped(int blocks) { return blocks < kMaxBlocks ? blocks : kMaxBlocks; }
 
 extern "C" {
 
-int slt_csr_spmv(int device, int n, const int* indptr, const int* indices,
-                 const float* vals, const float* x, const float* diag,
-                 float* y, void* stream) {
+// y = R x (+ diag * x) over the n_blocks row blocks of row_blocks
+// (n_blocks + 1 ascending row numbers from 0 to n, cut as the note at the
+// top says); diag may be null.
+int slt_csr_spmv(int device, int n_blocks, const int* row_blocks,
+                 const int* indptr, const int* indices, const float* vals,
+                 const float* x, const float* diag, float* y, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  csr_spmv_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
-      n, indptr, indices, vals, x, diag, y);
+  if (n_blocks < 1) return (int)cudaErrorInvalidValue;
+  csr_spmv_kernel<<<n_blocks, kStreamThreads, 0, (cudaStream_t)stream>>>(
+      row_blocks, indptr, indices, vals, x, diag, y);
   return (int)cudaGetLastError();
 }
 

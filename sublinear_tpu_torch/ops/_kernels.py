@@ -30,7 +30,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each library's entry points (all return an int error)
 SIGNATURES = {
     "csr_kernels": {
-        "slt_csr_spmv": [_I, _I] + [_P] * 7,
+        "slt_csr_spmv": [_I, _I] + [_P] * 8,
         "slt_neumann_step": [_I, _I] + [_P] * 10,
         "slt_cg_step": [_I, _I] + [_P] * 10 + [_I, _I, _I, _P, _P],
     },
@@ -40,7 +40,7 @@ SIGNATURES = {
         "slt_dense_power": [_I, _I, _I] + [_P] * 3 + [_F, _F, _I] + [_P] * 4,
     },
     "spmm_kernels": {
-        "slt_csr_spmm": [_I, _I, _I, _I] + [_P] * 7,
+        "slt_csr_spmm": [_I] * 5 + [_P] * 7,
     },
 }
 
@@ -120,13 +120,16 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def ptr(t):
-    """A tensor's device pointer for ctypes (None for None)."""
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+    """A tensor's device pointer as an int for a ``c_void_p`` argument (None
+    for None)."""
+    return None if t is None else t.data_ptr()
 
 
-def stream_of(t) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``t``'s device."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_of(t) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as an int: the raw
+    handle torch's own generated kernels launch on, one C call instead of a
+    ``torch.cuda.Stream`` object per launch."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def raise_on(rc: int, name: str, lib: ctypes.CDLL):

@@ -11,7 +11,8 @@ gather.  Here the off-diagonal entries are a plain CSR (int32 ``indptr`` and
 
 Kernels (``csrc/csr_kernels.cu``, built by ``ops/_kernels.py``):
   ``csr_spmv``      y = R x (+ diag * x): replaces ``_fused_call`` and
-                    ``_k1_call`` + ``_k2_call``;
+                    ``_k1_call`` + ``_k2_call``; one thread block streams
+                    each block of ``CsrOperator.row_blocks``;
   ``neumann_step``  one pass of ``_chain_call``; ``neumann_chain`` launches
                     it ``iters`` times on the current stream;
   ``cg_step``       one Jacobi-PCG step of ``_cg_chain_call`` (three
@@ -27,6 +28,8 @@ Each has a plain PyTorch version beside it (``csr_spmv_plain``,
 ``neumann_chain_plain``, ``cg_chain_plain``, ``csr_spmm_plain``).  A CPU
 tensor takes the plain version; a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches (one ``cg_step`` count per CG step).
+The wrappers check an operator's own arrays once (cached against their data
+pointers) and each call's vectors every call.
 """
 from __future__ import annotations
 
@@ -44,6 +47,10 @@ SPMM_MODES = {"f32": 0, "split": 1, "bf16": 2}
 
 _INT32_LIMIT = 2**31
 TINY = 1e-30  # _cg_chain_call's guard on p.q and rz
+# csr_spmv's row blocks (kTile, kTileRows and kLongRow in csrc/csr_kernels.cu):
+# at most SPMV_TILE off-diagonal entries and SPMV_ROWS rows per block, and a
+# row of more than SPMV_LONG_ROW entries is a block of its own
+SPMV_TILE, SPMV_ROWS, SPMV_LONG_ROW = 1024, 256, 64
 
 
 class CsrOperator:
@@ -62,6 +69,8 @@ class CsrOperator:
         self._nnz = nnz
         self.diag_split = diag_split  # diagonal excluded from the CSR
         self._row_ids = None
+        self._row_blocks = None
+        self._checked = None  # (data pointers, kernel arguments) once checked
 
     @property
     def dtype(self):
@@ -87,6 +96,16 @@ class CsrOperator:
             self._row_ids = torch.repeat_interleave(
                 torch.arange(self.n_pad, device=self.device), counts)
         return self._row_ids
+
+    @property
+    def row_blocks(self) -> torch.Tensor:
+        """``csr_spmv``'s partition of the rows (int32, on the operator's
+        device): ``spmv_row_blocks`` of ``indptr``, built at first use."""
+        if self._row_blocks is None:
+            self._row_blocks = to_device(
+                spmv_row_blocks(self.indptr.cpu().numpy()), torch.int32,
+                self.device)
+        return self._row_blocks
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         diag = self.diag if self.diag_split else None
@@ -189,6 +208,32 @@ def pack_csr(csr: CSR, device=None) -> CsrOperator:
         diag_split=split)
 
 
+def spmv_row_blocks(indptr, tile: int = SPMV_TILE, rows: int = SPMV_ROWS,
+                    long_row: int = SPMV_LONG_ROW) -> np.ndarray:
+    """Cut the rows of a CSR with row pointer ``indptr`` into ``csr_spmv``'s
+    row blocks: returns the ascending row numbers (int32) that start each
+    block, then n.  Greedy from row 0: a row of more than ``long_row``
+    entries is a block of its own; any other block takes as many rows as
+    keep it within ``tile`` entries and ``rows`` rows, and stops before a
+    long row.  The limits must be the kernel's (the defaults; other values
+    only for a kernel built with them, as sweep_sparse_kernels.py does)."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    n = indptr.size - 1
+    # the long rows in order, then n as a sentinel
+    long_rows = np.flatnonzero(np.diff(indptr) > long_row).tolist() + [n]
+    starts, r, li = [], 0, 0
+    while r < n:
+        starts.append(r)
+        if long_rows[li] == r:
+            r, li = r + 1, li + 1
+            continue
+        # the last row boundary within `tile` entries of row r's start
+        fit = int(np.searchsorted(indptr, indptr[r] + tile, side="right")) - 1
+        r = min(fit, r + rows, long_rows[li])
+    starts.append(n)
+    return np.asarray(starts, dtype=np.int32)
+
+
 # ---------------------------------------------------------------- plain
 
 def csr_spmv_plain(op: CsrOperator, x: torch.Tensor, diag=None):
@@ -276,11 +321,16 @@ def cg_chain_plain(op: CsrOperator, x, r, p, rz, iters: int):
 
 # ---------------------------------------------------------------- kernels
 
-def _check_operands(op: CsrOperator, **operands):
-    """Raise unless the operator's arrays and the ``name=(tensor, shape)``
-    operands are what the kernels take: contiguous int32 / f32 tensors of
-    the right shapes on one CUDA device (a shape is a length or a tuple;
-    None tensors are skipped)."""
+def _operator_args(op: CsrOperator) -> tuple:
+    """``(device index, indptr, indices, vals)`` of ``op``'s CSR as kernel
+    arguments, after raising unless its arrays are what the kernels take:
+    contiguous int32 / int32 / f32 of the right lengths on one CUDA device,
+    fewer than 2**31 entries, at least one row.  The check runs once per set
+    of arrays: the result is cached against their data pointers."""
+    arrays = (op.indptr, op.indices, op.vals)
+    key = tuple(t.data_ptr() for t in arrays)
+    if op._checked is not None and op._checked[0] == key:
+        return op._checked[1]
     dev = op.vals.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel operands on {dev}")
@@ -289,34 +339,61 @@ def _check_operands(op: CsrOperator, **operands):
         raise ValueError("nnz >= 2**31 does not fit the kernels' int32 CSR")
     if op.n_pad < 1:
         raise ValueError("the kernels need at least one row")
-    expected = {"indptr": (op.indptr, torch.int32, op.n_pad + 1),
-                "indices": (op.indices, torch.int32, nnz),
-                "vals": (op.vals, torch.float32, nnz)}
-    expected.update((name, (t, torch.float32, shape))
-                    for name, (t, shape) in operands.items() if t is not None)
-    for name, (t, dtype, shape) in expected.items():
-        shape = shape if isinstance(shape, tuple) else (shape,)
-        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"{name}: {t.dtype} {tuple(t.shape)} on {t.device} "
-                f"(contiguous={t.is_contiguous()}); the kernel takes "
-                f"contiguous {dtype} {shape} on {dev}")
+    index = dev.index or 0
+    for name, t, dtype, length in (("indptr", op.indptr, torch.int32,
+                                    op.n_pad + 1),
+                                   ("indices", op.indices, torch.int32, nnz),
+                                   ("vals", op.vals, torch.float32, nnz)):
+        _check_tensor(name, t, (length,), index, dtype)
+    args = (index, *key)
+    op._checked = (key, args)
+    op._row_blocks = None  # cut anew from the arrays just checked
+    return args
+
+
+def _check_tensor(name: str, t: torch.Tensor, shape: tuple, index: int,
+                  dtype=torch.float32):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    CUDA device ``index``."""
+    if not (t.is_cuda and t.get_device() == index and t.dtype == dtype
+            and t.shape == shape and t.is_contiguous()):
+        raise ValueError(
+            f"{name}: {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()}); the kernel takes contiguous "
+            f"{dtype} {shape} on cuda:{index}")
+
+
+def _check_operands(op: CsrOperator, **operands) -> tuple:
+    """Raise unless the operator's arrays (``_operator_args``) and the
+    ``name=(tensor, shape)`` operands are what the kernels take: contiguous
+    f32 tensors of the right shapes on the operator's CUDA device (a shape
+    is a length or a tuple; None tensors are skipped).  Returns
+    ``_operator_args(op)``."""
+    args = _operator_args(op)
+    for name, (t, shape) in operands.items():
+        if t is not None:
+            _check_tensor(name, t,
+                          shape if isinstance(shape, tuple) else (shape,),
+                          args[0])
+    return args
 
 
 def csr_spmv(op: CsrOperator, x: torch.Tensor, diag=None) -> torch.Tensor:
     """y = R x, plus diag * x when ``diag`` is given (f32)."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return csr_spmv_plain(op, x, diag)
 
-    n = op.n_pad
-    _check_operands(op, x=(x, op.m_pad), diag=(diag, n))
+    device, indptr, indices, vals = _operator_args(op)
+    _check_tensor("x", x, (op.m_pad,), device)
+    if diag is not None:
+        _check_tensor("diag", diag, (op.n_pad,), device)
+    blocks = op.row_blocks
     lib = library("csr_kernels")
-    y = torch.empty(n, dtype=torch.float32, device=x.device)
+    y = x.new_empty(op.n_pad)
     LAUNCHES["csr_spmv"] += 1
-    rc = lib.slt_csr_spmv(
-        x.device.index or 0, n, ptr(op.indptr), ptr(op.indices),
-        ptr(op.vals), ptr(x), ptr(diag), ptr(y), stream_of(x))
+    rc = lib.slt_csr_spmv(device, blocks.numel() - 1, blocks.data_ptr(),
+                          indptr, indices, vals, x.data_ptr(), ptr(diag),
+                          y.data_ptr(), stream_of(x))
     raise_on(rc, "csr_spmv", lib)
     return y
 
@@ -330,20 +407,20 @@ def csr_spmm(op: CsrOperator, X: torch.Tensor, diag=None,
     if X.dim() != 2 or X.shape[0] != op.m_pad or X.shape[1] < 1:
         raise ValueError(f"X must be (m={op.m_pad}, B) with B >= 1, got "
                          f"{tuple(X.shape)}")
-    if X.device.type == "cpu":
+    if X.is_cpu:
         return csr_spmm_plain(op, X, diag, mode)
 
     n, B = op.n_pad, X.shape[1]
     if diag is not None and op.m_pad != n:
         raise ValueError(f"diag needs a square operator, got {op.shape}")
-    _check_operands(op, X=(X, (op.m_pad, B)), diag=(diag, n))
+    device, indptr, indices, vals = _check_operands(
+        op, X=(X, (op.m_pad, B)), diag=(diag, n))
     lib = library("spmm_kernels")
-    Y = torch.empty((n, B), dtype=torch.float32, device=X.device)
+    Y = X.new_empty((n, B))
     LAUNCHES["csr_spmm"] += 1
-    rc = lib.slt_csr_spmm(
-        X.device.index or 0, SPMM_MODES[mode], n, B, ptr(op.indptr),
-        ptr(op.indices), ptr(op.vals), ptr(X), ptr(diag), ptr(Y),
-        stream_of(X))
+    rc = lib.slt_csr_spmm(device, SPMM_MODES[mode], n, op.m_pad, B, indptr,
+                          indices, vals, X.data_ptr(), ptr(diag),
+                          Y.data_ptr(), stream_of(X))
     raise_on(rc, "csr_spmm", lib)
     return Y
 
@@ -358,11 +435,12 @@ def neumann_chain(op: CsrOperator, term0: torch.Tensor, iters: int,
     if with_residual not in (False, True, "norm"):
         raise ValueError(f"with_residual must be False, True or 'norm', "
                          f"got {with_residual!r}")
-    if term0.device.type == "cpu":
+    if term0.is_cpu:
         return neumann_chain_plain(op, term0, iters, with_residual)
 
     n = op.n_pad
-    _check_operands(op, term0=(term0, n), inv_diag=(op.inv_diag, n))
+    device, indptr, indices, vals = _check_operands(
+        op, term0=(term0, n), inv_diag=(op.inv_diag, n))
     lib = library("csr_kernels")
     acc = term0.clone()
     # ping-pong: a row's gather reads other rows of t_in, so t_out is
@@ -373,14 +451,13 @@ def neumann_chain(op: CsrOperator, term0: torch.Tensor, iters: int,
     res2 = (torch.zeros((), dtype=torch.float64, device=term0.device)
             if norm else None)
     stream = stream_of(term0)
-    device = term0.device.index or 0
     t_in = term0
     for j in range(iters):
         last = j == iters - 1
         t_out = bufs[j % 2]
         LAUNCHES["neumann_step"] += 1
         rc = lib.slt_neumann_step(
-            device, n, ptr(op.indptr), ptr(op.indices), ptr(op.vals),
+            device, n, indptr, indices, vals,
             ptr(t_in), ptr(op.inv_diag), ptr(t_out), ptr(acc),
             ptr(res if last else None), ptr(res2 if last else None),
             stream)
@@ -400,12 +477,13 @@ def cg_chain(op: CsrOperator, x, r, p, rz, iters: int):
     and then updated in place by the kernels."""
     if iters < 1:
         raise ValueError(f"cg_chain needs iters >= 1, got {iters}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return cg_chain_plain(op, x, r, p, rz, iters)
 
     n = op.n_pad
-    _check_operands(op, x=(x, n), r=(r, n), p=(p, n), diag=(op.diag, n),
-                    inv_diag=(op.inv_diag, n))
+    device, indptr, indices, vals = _check_operands(
+        op, x=(x, n), r=(r, n), p=(p, n), diag=(op.diag, n),
+        inv_diag=(op.inv_diag, n))
     if rz.device != x.device or rz.dtype != torch.float32 or rz.dim() != 0:
         raise ValueError(f"rz: {rz.dtype} {tuple(rz.shape)} on {rz.device}; "
                          f"the kernel takes a 0-d float32 tensor on {x.device}")
@@ -418,9 +496,8 @@ def cg_chain(op: CsrOperator, x, r, p, rz, iters: int):
     out = torch.empty(2, dtype=torch.float32, device=x.device)
     stream = stream_of(x)
     # the same operands for every step; only the step index changes
-    args = (x.device.index or 0, n,
-            *map(ptr, (op.indptr, op.indices, op.vals, op.diag, op.inv_diag,
-                       x, r, p, q, scal)))
+    args = (device, n, indptr, indices, vals,
+            *map(ptr, (op.diag, op.inv_diag, x, r, p, q, scal)))
     for j in range(iters):
         LAUNCHES["cg_step"] += 1
         rc = lib.slt_cg_step(*args, j, iters, int(j == iters - 1), ptr(out),

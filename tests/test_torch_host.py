@@ -176,8 +176,9 @@ def test_port_imports_no_jax():
     root = Path(slp.__file__).resolve().parent
     files = sorted(root.rglob("*.py"))
     assert len(files) > 10
-    chip_smoke = root.parent / "chip_smoke.py"
-    for path in files + [chip_smoke]:
+    scripts = [root.parent / "chip_smoke.py",
+               root.parent / "sweep_sparse_kernels.py"]
+    for path in files + scripts:
         tree = ast.parse(path.read_text(), filename=str(path))
         bad = [m for m in _imported_modules(tree) if _forbidden(m)]
         assert not bad, f"{path.name} imports {bad}"

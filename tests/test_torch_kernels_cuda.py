@@ -9,7 +9,10 @@ fixture, not at import).  On a machine with a card and without jax, run
 only the port.  Tolerance: max |kernel - plain| <= 1e-5 * max |plain| (f32
 sums taken in another order; for csr_spmm's bf16 modes the same per-entry
 roundings, summed in another order), 1e-4 for the CG chain and for bf16x3
-(its bf16 split of t can round the other way).
+(its bf16 split of t can round the other way).  Where the kernels promise
+the same order of arithmetic (csr_spmv against a one-column csr_spmm on
+short rows, a column of csr_spmm against the product of that column alone,
+two runs), the results must be equal bit for bit.
 """
 import numpy as np
 import pytest
@@ -244,11 +247,11 @@ def spmm_op():
 
 
 @pytest.mark.parametrize("mode", sorted(K.SPMM_MODES))
-@pytest.mark.parametrize("B", [1, 3, 8, 128])
+@pytest.mark.parametrize("B", [1, 3, 8, 32, 128, 200])
 def test_csr_spmm(spmm_op, mode, B):
     """Every product mode against its plain version, for scalar (B = 1, 3)
-    and float4 (B = 8, 128) columns; the f32 mode with the split
-    diagonal, as CsrOperator.matmat runs it."""
+    and float4 (B = 8, 32, 128, 200) columns, B = 200 in two column slabs;
+    the f32 mode with the split diagonal, as CsrOperator.matmat runs it."""
     op = spmm_op
     rng = np.random.default_rng(B)
     X = torch.as_tensor(rng.standard_normal((op.m_pad, B)),
@@ -265,14 +268,120 @@ def test_csr_spmm(spmm_op, mode, B):
         assert not got[EMPTY_ROW].any()
 
 
-def test_csr_spmm_unaligned_block(spmm_op):
+@pytest.mark.parametrize("mode", sorted(K.SPMM_MODES))
+@pytest.mark.parametrize("B", [8, 200])
+def test_csr_spmm_unaligned_block(spmm_op, mode, B):
     """A contiguous X whose start is 4 bytes off a 16-byte boundary takes
-    the scalar path even though B % 4 == 0."""
+    the scalar path even though B % 4 == 0, in every product mode."""
     op = spmm_op
-    flat = torch.randn(op.m_pad * 8 + 1, device=op.device)
-    X = flat[1:].view(op.m_pad, 8)
-    _close(K.csr_spmm(op, X, op.diag), K.csr_spmm_plain(op, X, op.diag))
-    _close(op.matmat(X), K.csr_spmm_plain(op, X, op.diag))
+    flat = torch.randn(op.m_pad * B + 1, device=op.device)
+    X = flat[1:].view(op.m_pad, B)
+    diag = op.diag if mode == "f32" else None
+    _close(K.csr_spmm(op, X, diag, mode),
+           K.csr_spmm_plain(op, X, diag, mode))
+    if mode == "f32":
+        _close(op.matmat(X), K.csr_spmm_plain(op, X, op.diag))
+
+
+@pytest.mark.parametrize("mode", sorted(K.SPMM_MODES))
+def test_csr_spmm_columns_bit_identical(spmm_op, mode):
+    """Each element of Y is one chain in CSR order, so a column of the
+    product (in either of B = 200's two slabs, on the float4 path) is the
+    product of that column alone (the scalar path), a block of columns the
+    product of that block, and two runs are equal."""
+    op = spmm_op
+    X = torch.randn(op.m_pad, 200, device=op.device)
+    diag = op.diag if mode == "f32" else None
+    Y = K.csr_spmm(op, X, diag, mode)
+    assert torch.equal(Y, K.csr_spmm(op, X, diag, mode))
+    for s in (0, 31, 127, 128, 199):
+        one = K.csr_spmm(op, X[:, s:s + 1].contiguous(), diag, mode)
+        assert torch.equal(Y[:, s], one[:, 0]), s
+    block = K.csr_spmm(op, X[:, 8:16].contiguous(), diag, mode)
+    assert torch.equal(Y[:, 8:16], block)
+
+
+def test_csr_spmv_is_one_column_spmm(spmm_op):
+    """On rows of at most SPMV_LONG_ROW entries csr_spmv sums in csr_spmm's
+    order, so the two agree bit for bit there (the hub row, summed by a
+    whole block, only within the tolerance)."""
+    op = spmm_op
+    x = torch.randn(op.m_pad, device=op.device)
+    short = torch.diff(op.indptr) <= K.SPMV_LONG_ROW
+    assert not short[HUB_ROW] and int(short.sum()) == op.n_pad - 1
+    for diag in (op.diag, None):
+        y = K.csr_spmv(op, x, diag)
+        Y = K.csr_spmm(op, x[:, None].contiguous(), diag)
+        assert torch.equal(y[short], Y[short, 0])
+        _close(y, Y[:, 0])
+        assert torch.equal(y, K.csr_spmv(op, x, diag))
+
+
+def _csr_from_lengths(lengths, m=None, seed=0):
+    """A CSR whose row i holds lengths[i] entries at random columns of m,
+    none on the diagonal."""
+    lengths = np.asarray(lengths)
+    n = lengths.size
+    m = n if m is None else m
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), lengths)
+    cols = rng.integers(0, m, rows.size)
+    if n == m:
+        cols = np.where(cols == rows, (rows + 1) % n, cols)
+    return CSR(np.r_[0, np.cumsum(lengths)], cols,
+               rng.uniform(-1, 1, rows.size), (n, m))
+
+
+SPMV_CASES = {
+    "empty_rows": np.where(np.arange(3000) % 3 == 0, 0, 7),
+    "row_past_tile": np.r_[np.full(40, 6), 5000, np.full(40, 6)],
+    "long_rows": np.r_[np.full(30, 5), 65, 64, 1024, 1025, np.full(30, 5)],
+    "tile_boundary": np.full(640, 16),  # 64 rows fill a tile exactly
+    "n_not_block_multiple": np.full(1037, 2),
+    "one_row": np.array([0]),
+    "no_offdiag": np.zeros(900, int),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPMV_CASES) + ["rectangular"])
+def test_csr_spmv_shapes(card, case):
+    """csr_spmv against its plain version where the row blocks have edges:
+    empty rows, a row longer than the tile, rows just over and at the long
+    row threshold, rows ending on a tile boundary, n not a multiple of the
+    block's rows, n = 1, no off-diagonal entries and a rectangular
+    operator; with and without the diagonal where the operator is square."""
+    csr = (_csr_from_lengths(np.random.default_rng(2).poisson(4, 300), 900)
+           if case == "rectangular" else _csr_from_lengths(SPMV_CASES[case]))
+    op = K.pack_csr(csr, device=card)
+    x = torch.as_tensor(np.random.default_rng(3).uniform(-1, 1, op.m_pad),
+                        dtype=torch.float32, device=card)
+    for diag in ((op.diag, None) if op.diag_split else (None,)):
+        before = K.LAUNCHES["csr_spmv"]
+        got = K.csr_spmv(op, x, diag)
+        assert K.LAUNCHES["csr_spmv"] == before + 1
+        want = K.csr_spmv_plain(op, x, diag)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (op.n_pad,)
+        if want.abs().max() == 0:
+            assert not got.any()
+        else:
+            _close(got, want)
+
+
+def test_operator_check_is_cached(card):
+    """The operator's arrays are checked once, then again only when one of
+    them is another tensor; a check that fails raises every time."""
+    op = K.pack_csr(_csr_from_lengths(np.full(500, 5)), device=card)
+    x = torch.ones(500, device=card)
+    K.csr_spmv(op, x)
+    assert op._checked is not None
+    op.vals = op.vals.double()
+    for _ in range(2):
+        with pytest.raises(ValueError, match="vals"):
+            K.csr_spmv(op, x)
+    with pytest.raises(ValueError, match="x:"):
+        K.csr_spmv(K.pack_csr(_csr_from_lengths(np.full(500, 5)),
+                              device=card), x[:499])
 
 
 @pytest.mark.parametrize("precise", [True, False])
