@@ -10,53 +10,66 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
   2. build the CUDA kernels of sublinear_tpu_torch/csrc from source;
   3. at n=100k (random-sparse, density 1e-4, seed 7) hold each kernel to its
      plain PyTorch version on the card: matvec, offdiag_matvec and
-     neumann_chain(., 12, with_residual in {False, True, "norm"}); then
-     csr_spmv's time per call against cuSPARSE and its bit identity with a
-     one-column csr_spmm on rows of at most SPMV_LONG_ROW entries;
+     neumann_chain(., 12, with_residual in {False, True, "norm"}); the
+     chains' products against csr_spmv bit for bit (the Neumann step's y,
+     and the CG step's q against csr_spmv(p, diag)); then csr_spmv's time
+     per call against cuSPARSE and its bit identity with a one-column
+     csr_spmm on rows of at most SPMV_LONG_ROW entries;
   4. the main path: sublinear_tpu_torch.solve(A, b, method="neumann",
-     epsilon=1e-6) at that size, with the kernels' launch counts;
+     epsilon=1e-6) at that size, with the kernels' launch and step counts;
   5. the bench-shaped verified solve neumann_chain(inv_d * b, 12, "norm"),
-     timed per solve against the plain version;
-  6. the same solve as phase 4 at n=1M (density 1e-5), and phase 3's
-     csr_spmv checks and times at that size;
+     timed per solve against the plain version, and the products of its
+     12th step against csr_spmv bit for bit;
+  6. the same solve as phase 4 at n=1M (density 1e-5), the chains'
+     products against csr_spmv there, the Neumann step's time beside its
+     bound, and phase 3's csr_spmv checks and times at that size;
   7. the canonical library drive at n=1000 (dense route);
   8. the CG kernel against its plain version: cg_chain(., 10) on the SPD
      n=100k matrix (the headline matrix made symmetric: strict upper
      entries mirrored, diagonal 1.5 * |off-diagonal row sum| + 1), all five
-     outputs, continuation 5 + 5 = 10, and the time per CG step in turns;
+     outputs, continuation 5 + 5 = 10, the products against csr_spmv bit
+     for bit, and the time per CG step in turns;
   9. the CG main path: solve(method="cg", epsilon=1e-6) on that matrix, and
      the per-step CG path (check_every=1) beside it;
  10. BiCGSTAB on the (asymmetric) headline matrix, as method="bicgstab" and
      as method="cg", which dispatch routes to BiCGSTAB;
- 11. solve(method="cg") on the SPD n=1M matrix (density 1e-5);
+ 11. solve(method="cg") on the SPD n=1M matrix (density 1e-5), and the CG
+     step's time beside its bound;
  12. CG on the DIA route (the "banded" catalog recipe at n=1M) and on the
      ELL route (random-sparse n=12,000, density 0.03, made symmetric);
- 13. the four dense kernels of ops/dense_fused.py against their plain
+ 13. the default solve(A, b): on the headline matrix with b = e_0 it picks
+     forward push ("csr" route, csr_spmv); on the tridiagonal matrix of
+     diagonal 2.2 and off-diagonals -1 at n=1M with b = rhs(n, seed=1) it
+     picks Chebyshev ("dia" route); and solve(method="chebyshev") on the SPD
+     n=100k matrix ("csr" route); with iterations and warm times;
+ 14. the four dense kernels of ops/dense_fused.py against their plain
      versions, on random-sparse (density 0.01, seed 7) matrices of the dense
      route: dense_neumann_fused at n=768 and n=1536 with B in {1, 4} and a
      warm restart 8 then 8, dense_neumann_fused_bf16x3, dense_jacobi_fused
      and dense_power_fused (on a column-stochastic P^T of a seeded random
      graph with dangling nodes, alpha 0.85) at n=1536, each with iters=8,
      and the time per call of each in turns;
- 14. the dense fused path: solve_neumann_fused at n=768, epsilon 1e-6
+ 15. the dense fused path: solve_neumann_fused at n=768, epsilon 1e-6
      ("neumann-fused-highest"), at n=1536, epsilon 1e-3
      ("neumann-fused-bf16x3"), and at n=1536, epsilon 1e-6 (the fallback to
      "neumann"), with launch counts and warm solve times;
- 15. the SpMM kernel against its plain version at n=100k: csr_spmm as
+ 16. the SpMM kernel against its plain version at n=100k: csr_spmm as
      CsrOperator.matmat runs it (f32, split diagonal) for B in {8, 128},
      with cuSPARSE's time and the bit identity of single columns (across the
      column slabs) with the product of that column alone, and onehot_spmm on
      build_tiles of the same matrix at B=128 with precise in {True, False},
      each timed in turns with the plain version;
- 16. the batch path: parallel.sharded.solve_batch at n=100k with 128 RHS
+ 17. the batch path: parallel.sharded.solve_batch at n=100k with 128 RHS
      (numpy default_rng(0) standard normal, as bench.py's batch row) and
      epsilon 1e-6, method="neumann" on the headline matrix and
      method="auto" (CG) on its SPD form, with launch counts, each column's
      host f64 residual and warm times per batch and per RHS;
- 17. the small-batch path: solve_batch with 20 RHS at n=100k, which runs
+ 18. the small-batch path: solve_batch with 20 RHS at n=100k, which runs
      serialized Neumann chain solves (neumann_step, no csr_spmm);
- 18. the figures of csr_spmv (phases 3 and 6) and csr_spmm (phase 15, f32)
-     with their device times.  They come last because a torch.profiler
+ 19. the figures of csr_spmv (phases 3 and 6) and csr_spmm (phase 16, f32)
+     with their device times, and the device times of the two chain
+     kernels at n=100k (neumann_step per step of phase 5's chain, cg_step
+     per step of phase 8's).  They come last because a torch.profiler
      window slows the host-bound solves that follow it in the same process
      (BiCGSTAB, CG on the ELL route).
 
@@ -68,7 +81,7 @@ function (a CUDA torch.sparse_csr_tensor of A times x, or times X with
 torch.sparse.mm) as a yardstick the port never calls.  The figures of those
 two kernels: the time per back-to-back call (CUDA events, host work
 included), the device time alone (torch.profiler over a window of
-back-to-back calls, phase 18), both also for the yardstick, the bound and
+back-to-back calls, phase 19), both also for the yardstick, the bound and
 its share,
 the bytes per second achieved (the bound's bytes over the device time) and
 the L2 traffic of the gathers, computed from the shapes (a 32-byte sector
@@ -193,6 +206,41 @@ def dense_bound(name, n, B, iters):
     return bound(4 * n * n + 12 * n * B, (2 * n * n * B + 7 * n * B) * iters)
 
 
+def chain_bounds(op):
+    """{kernel: (ms, by)}: the bound of one Neumann step (indptr, the
+    off-diagonal CSR, t_in, inv_d and acc read; t_out and acc written) and
+    of one CG step (indptr, the CSR, diag, inv_d, x, r and p read; x, r, p
+    written) on ``op``."""
+    n, nnz = op.n_pad, op.indices.numel()
+    return {"neumann_step": bound(4 * (n + 1) + 8 * nnz + 20 * n,
+                                  2 * nnz + 3 * n),
+            "cg_step": bound(4 * (n + 1) + 8 * nnz + 32 * n,
+                             2 * nnz + 13 * n)}
+
+
+def check_chain_products(torch, K, op, x, label, iters=1):
+    """Raise unless both chains' products of step ``iters`` equal csr_spmv's
+    bit for bit: the Neumann step's y (-res of a chain with_residual=True)
+    and last term against csr_spmv of the term before, the CG step's q
+    (``q_out``) against csr_spmv(p, diag) of the direction before."""
+    t_prev = x if iters == 1 else K.neumann_chain(op, x, iters - 1)[1]
+    _, last, res = K.neumann_chain(op, x, iters, True)
+    y = K.csr_spmv(op, t_prev)
+    z = op.inv_diag * x
+    state = (torch.zeros_like(x), x, z, K.dot64(x, z))
+    p_prev = z if iters == 1 else K.cg_chain(op, *state, iters - 1)[2]
+    q = torch.empty_like(x)
+    K.cg_chain(op, *state, iters, q_out=q)
+    if not (torch.equal(-res, y) and torch.equal(last, -(op.inv_diag * y))):
+        raise RuntimeError(f"neumann_chain's step {iters} product differs "
+                           f"from csr_spmv at {label}")
+    if not torch.equal(q, K.csr_spmv(op, p_prev, op.diag)):
+        raise RuntimeError(f"cg_chain's step {iters} product differs from "
+                           f"csr_spmv(p, diag) at {label}")
+    print(f"  step {iters} products at {label}: neumann_step y == csr_spmv("
+          f"t), cg_step q == csr_spmv(p, diag), bit for bit", flush=True)
+
+
 def host_residual(A, x, b) -> float:
     return float(np.linalg.norm(A.csr.matvec(x) - b) / np.linalg.norm(b))
 
@@ -221,6 +269,16 @@ def symmetric_dd(slt, rows, cols, vals, n):
     d = np.arange(n)
     return slt.Matrix.from_coo(np.concatenate([r, d]), np.concatenate([c, d]),
                                np.concatenate([v, diag]), (n, n))
+
+
+def tridiagonal(slt, n, diag=2.2):
+    """The symmetric tridiagonal matrix of diagonal ``diag`` and
+    off-diagonals -1: weakly dominant, so the default solve() picks
+    Chebyshev."""
+    i = np.arange(n)
+    return slt.Matrix.from_coo(
+        np.r_[i, i[:-1], i[1:]], np.r_[i, i[1:], i[:-1]],
+        np.r_[np.full(n, diag), -np.ones(n - 1), -np.ones(n - 1)], (n, n))
 
 
 def banded(slt, n, seed=0, band=3):
@@ -292,12 +350,13 @@ def sparse_csr(torch, A, dev):
         device=dev)
 
 
-def device_ms(torch, fn, reps=DEVICE_REPS):
+def device_ms(torch, fn, reps=DEVICE_REPS, kernel=None):
     """Mean device ms per call of ``fn``: the own time of every kernel and
-    copy on the card under torch.profiler, over ``reps`` back-to-back warm
-    calls; None when the profiler saw no device time.  The profiler now and
-    then loses records of a window, so each kernel's time is its mean over
-    the launches it recorded, times its launches per call."""
+    copy on the card under torch.profiler (only those whose name holds
+    ``kernel``, if given), over ``reps`` back-to-back warm calls; None when
+    the profiler saw no such device time.  The profiler now and then loses
+    records of a window, so each kernel's time is its mean over the
+    launches it recorded, times its launches per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -311,7 +370,8 @@ def device_ms(torch, fn, reps=DEVICE_REPS):
     total_us = sum(getattr(e, "self_device_time_total", 0) / e.count
                    * max(1, round(e.count / reps))
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.count)
+                   if e.device_type == DeviceType.CUDA and e.count
+                   and (kernel is None or kernel in e.key))
     return total_us / 1e3 if total_us > 0 else None
 
 
@@ -354,7 +414,7 @@ def spmv_figures(torch, K, A, op, x, label, reps):
     torch.sparse_csr_tensor of the full A, a yardstick the port never
     calls), after raising unless the yardstick agrees with the kernel and,
     on rows of at most SPMV_LONG_ROW entries, csr_spmv equals a one-column
-    csr_spmm bit for bit.  Returns the ``Figures`` phase 18 prints."""
+    csr_spmm bit for bit.  Returns the ``Figures`` phase 19 prints."""
     n, nnz = op.n_pad, op.indices.numel()
     S = sparse_csr(torch, A, x.device)
     kern, lib = lambda: K.csr_spmv(op, x, op.diag), lambda: torch.mv(S, x)
@@ -425,9 +485,11 @@ def in_turns(torch, kern, plain, reps):
 
 
 def reset(*modules):
+    """Set every launch (and step) count of ``modules`` to 0."""
     for mod in modules:
-        for name in mod.LAUNCHES:
-            mod.LAUNCHES[name] = 0
+        for counts in (mod.LAUNCHES, getattr(mod, "STEPS", {})):
+            for name in counts:
+                counts[name] = 0
 
 
 def stochastic(torch, n, B, dev, seed=SEED):
@@ -519,7 +581,8 @@ def main() -> int:
             if not rel <= KERNEL_RTOL:
                 raise RuntimeError(f"{name} {label} disagrees with its plain "
                                    f"version: {rel} > {KERNEL_RTOL}")
-    # the figures phase 18 prints, by kernel, the first of each on the path
+    check_chain_products(torch, K, op, x, f"n={N_MAIN}")
+    # the figures phase 19 prints, by kernel, the first of each on the path
     late = {"csr_spmv": [spmv_figures(torch, K, A, op, x, f"n={N_MAIN}",
                                       200)]}
     main_fig = late["csr_spmv"][0]
@@ -530,9 +593,7 @@ def main() -> int:
         torch, lambda: K.csr_spmv_plain(op, x, op.diag), 200)}
     nnz_off = op.indices.numel()
     # one step: the matrix, t_in, inv_d and acc read, t_out and acc written
-    bounds["neumann_step"] = bound(
-        4 * (N_MAIN + 1) + 8 * nnz_off + 20 * N_MAIN,
-        2 * nnz_off + 3 * N_MAIN)
+    bounds["neumann_step"] = chain_bounds(op)["neumann_step"]
 
     phase(f"4 main path: solve(method='neumann') at n={N_MAIN}")
     reset(K)
@@ -542,7 +603,8 @@ def main() -> int:
         raise RuntimeError(f"a kernel of the main path never launched: "
                            f"{launches}")
     print(f"iterations={r.iterations} residual={r.residual:.3e} "
-          f"host f64 rel residual={rel:.3e} launches={launches}", flush=True)
+          f"host f64 rel residual={rel:.3e} launches={launches} steps="
+          f"{K.STEPS}", flush=True)
     warm = warm_ms(torch, lambda: slt.solve(A, b, method="neumann",
                                             epsilon=1e-6), 5)
     print(f"warm solve ms (CUDA events, 5 runs): "
@@ -569,6 +631,8 @@ def main() -> int:
         print(f"  {label}: verified rel residual {res:.3e}", flush=True)
         if not res <= CHAIN_RTOL:
             raise RuntimeError(f"{label} chain residual {res} > {CHAIN_RTOL}")
+    check_chain_products(torch, K, op, op.inv_diag * b_dev, f"n={N_MAIN}",
+                         CHAIN_ITERS)
     k_ms, p_ms, turns = in_turns(torch, chain_kernel, chain_plain, 100)
     print(f"  per verified solve ms: kernel {turns['kernel']} plain "
           f"{turns['plain']}", flush=True)
@@ -590,11 +654,14 @@ def main() -> int:
                                                  epsilon=1e-6), 1)
     op_big = A_big.op()
     t_big = op_big.inv_diag * A_big.pad_vector(b_big)
+    check_chain_products(torch, K, op_big, t_big, f"n={N_LARGE}")
     step_ms = time_ms(torch, lambda: K.neumann_chain(
         op_big, t_big, CHAIN_ITERS, "norm"), 20) / CHAIN_ITERS
+    big_bound = chain_bounds(op_big)["neumann_step"]
     print(f"iterations={r_big.iterations} host f64 rel residual="
-          f"{rel_big:.3e} warm solve ms {big_ms:.4f} "
-          f"neumann_step ms {step_ms:.4f}", flush=True)
+          f"{rel_big:.3e} warm solve ms {big_ms:.4f} neumann_step ms per "
+          f"step {step_ms:.5f}, bound {big_bound[0]:.5f} ms ({big_bound[1]})"
+          f", {big_bound[0] / step_ms:.3f} of it", flush=True)
     late["csr_spmv"].append(spmv_figures(torch, K, A_big, op_big,
                                          t_big.clone(), f"n={N_LARGE}", 50))
 
@@ -640,16 +707,14 @@ def main() -> int:
             if not rel <= CG_RTOL:
                 raise RuntimeError(f"cg_step {label} {name}: {rel} > "
                                    f"{CG_RTOL}")
+    check_chain_products(torch, K, sop, b_s, f"n={N_MAIN} SPD")
     k_ms, p_ms, turns = in_turns(
         torch, lambda: K.cg_chain(sop, *cg0, CG_ITERS),
         lambda: K.cg_chain_plain(sop, *cg0, CG_ITERS), 20)
     print(f"  per CG chain of {CG_ITERS} steps ms: kernel {turns['kernel']} "
           f"plain {turns['plain']}", flush=True)
     ms["cg_step"], plain_ms["cg_step"] = k_ms / CG_ITERS, p_ms / CG_ITERS
-    nnz_s = sop.indices.numel()
-    # one step: the matrix, diag, inv_d, x, r, p read; x, r, p written
-    bounds["cg_step"] = bound(4 * (N_MAIN + 1) + 8 * nnz_s + 32 * N_MAIN,
-                              2 * nnz_s + 13 * N_MAIN)
+    bounds["cg_step"] = chain_bounds(sop)["cg_step"]
 
     phase(f"9 main path: solve(method='cg') at n={N_MAIN} (SPD)")
     reset(K)
@@ -660,8 +725,8 @@ def main() -> int:
         raise RuntimeError(f"a kernel of the CG path never launched: "
                            f"{K.LAUNCHES}")
     print(f"iterations={r_cg.iterations} residual={r_cg.residual:.3e} "
-          f"host f64 rel residual={rel_cg:.3e} launches={K.LAUNCHES}",
-          flush=True)
+          f"host f64 rel residual={rel_cg:.3e} launches={K.LAUNCHES} steps="
+          f"{K.STEPS}", flush=True)
     warm = warm_ms(torch, lambda: slt.solve(S, b, method="cg",
                                             epsilon=1e-6), 5)
     print(f"warm CG solve ms (CUDA events, 5 runs): "
@@ -718,9 +783,12 @@ def main() -> int:
     cg_big = (torch.zeros_like(bb), bb, zb, K.dot64(bb, zb))
     cg_big_ms = time_ms(torch, lambda: K.cg_chain(
         sop_big, *cg_big, CG_ITERS), 5) / CG_ITERS
+    big_bound = chain_bounds(sop_big)["cg_step"]
     print(f"iterations={r_cgb.iterations} host f64 rel residual={rel_cgb:.3e}"
-          f" launches={cgb_launches} warm solve ms {cgb_ms:.4f} cg_step ms "
-          f"{cg_big_ms:.4f}", flush=True)
+          f" launches={cgb_launches} steps={K.STEPS} warm solve ms "
+          f"{cgb_ms:.4f} cg_step ms per step {cg_big_ms:.5f}, bound "
+          f"{big_bound[0]:.5f} ms ({big_bound[1]}), "
+          f"{big_bound[0] / cg_big_ms:.3f} of it", flush=True)
     del S_big, sop_big, cg_big, bb, zb
 
     phase("12 CG on the DIA and ELL routes")
@@ -744,7 +812,44 @@ def main() -> int:
               f"iterations={r_m.iterations} host f64 rel residual="
               f"{rel_m:.3e} warm solve ms {m_ms:.4f}", flush=True)
 
-    phase(f"13 dense kernels vs plain at n={DENSE_SIZES}, "
+    phase("13 the default solve(): forward push and Chebyshev")
+    e0 = np.zeros(N_MAIN)
+    e0[0] = 1.0
+    T = tridiagonal(slt, N_LARGE)
+    b_t = slt.rhs(N_LARGE, seed=1)
+    for label, M, rhs_m, method, expect, route in (
+            (f"default solve, headline n={N_MAIN}, b = e_0", A, e0, None,
+             "forward-push", "csr"),
+            (f"method='chebyshev', SPD n={N_MAIN}", S, b, "chebyshev",
+             "chebyshev", "csr"),
+            (f"default solve, tridiagonal n={N_LARGE}", T, b_t, None,
+             "chebyshev", "dia")):
+        if M._op_kind() != route:
+            raise RuntimeError(f"{label} routes to {M._op_kind()!r}")
+        reset(K)
+        r_m = slt.solve(M, rhs_m, method=method)
+        counts = dict(K.LAUNCHES)
+        rel_m = host_residual(M, r_m.solution, rhs_m)
+        # the default solve may polish a stalled push with a Krylov method
+        method_ok = r_m.method == expect or (
+            method is None and r_m.method.startswith(f"adaptive({expect}->"))
+        launched_ok = (counts["csr_spmv"] > 0 if route == "csr"
+                       else not any(counts.values()))
+        if not (r_m.converged and np.all(np.isfinite(r_m.solution))
+                and r_m.solution.shape == rhs_m.shape and rel_m < SOLVE_RTOL
+                and method_ok and launched_ok):
+            raise RuntimeError(f"{label}: method={r_m.method} converged="
+                               f"{r_m.converged} iterations={r_m.iterations}"
+                               f" host rel residual {rel_m} launches "
+                               f"{counts}")
+        warm = warm_ms(torch, lambda: slt.solve(M, rhs_m, method=method), 3)
+        print(f"{label}: ran {r_m.method}, iterations={r_m.iterations} "
+              f"residual={r_m.residual:.3e} host f64 rel residual="
+              f"{rel_m:.3e} launches={counts} warm solve ms "
+              f"{' '.join(f'{t:.4f}' for t in warm)}", flush=True)
+    del T, b_t
+
+    phase(f"14 dense kernels vs plain at n={DENSE_SIZES}, "
           f"iters={DENSE_ITERS}")
     dense = {}
     for n in DENSE_SIZES:
@@ -831,7 +936,7 @@ def main() -> int:
             raise RuntimeError(f"warm restart at n={n}: {rel} > "
                                f"{KERNEL_RTOL}")
 
-    phase("14 the dense fused path: solve_neumann_fused")
+    phase("15 the dense fused path: solve_neumann_fused")
     for n, eps, expect, key in (
             (768, 1e-6, "neumann-fused-highest", "dense_neumann_fused"),
             (1536, 1e-3, "neumann-fused-bf16x3",
@@ -864,7 +969,7 @@ def main() -> int:
     # on no path of the port or of the JAX package (tests only)
     launches["dense_jacobi_fused"] = launches["dense_power_fused"] = 0
 
-    phase(f"15 csr_spmm vs plain at n={N_MAIN}, B in {SPMM_WIDTHS}")
+    phase(f"16 csr_spmm vs plain at n={N_MAIN}, B in {SPMM_WIDTHS}")
     from sublinear_tpu_torch.ops import tiled_spmm as TS
     from sublinear_tpu_torch.parallel import sharded as PS
 
@@ -949,7 +1054,7 @@ def main() -> int:
               f"{b_ms / k_ms:.3f} of it", flush=True)
     del tiles, Xp
 
-    phase(f"16 solve_batch at n={N_MAIN} with {N_RHS} RHS, epsilon 1e-6")
+    phase(f"17 solve_batch at n={N_MAIN} with {N_RHS} RHS, epsilon 1e-6")
     Bm = np.random.default_rng(0).standard_normal((N_MAIN, N_RHS))
     opts = slt.SolverOptions(epsilon=1e-6)
     for label, M, method, expect in (
@@ -1001,7 +1106,7 @@ def main() -> int:
                                                         method="neumann"),
                           args.trace / "batch_neumann_n100k.json")
 
-    phase(f"17 small-batch chain path: {N_RHS_CHAIN} RHS at n={N_MAIN}")
+    phase(f"18 small-batch chain path: {N_RHS_CHAIN} RHS at n={N_MAIN}")
     B_small = Bm[:, :N_RHS_CHAIN]
     reset(K)
     results = PS.solve_batch(A, B_small, opts, method="neumann")
@@ -1020,9 +1125,23 @@ def main() -> int:
           f"{rels.max():.3e} launches={counts}; warm ms per batch "
           f"{' '.join(f'{t:.4f}' for t in warm)}", flush=True)
 
-    phase("18 device times of the sparse products (torch.profiler)")
+    phase("19 device times of the sparse products and chains "
+          "(torch.profiler)")
     dev_ms = {name: [fig.report(torch) for fig in figs][0]
               for name, figs in late.items()}
+    for name, fn, steps, kern in (
+            ("neumann_step", chain_kernel, CHAIN_ITERS, "neumann_chain"),
+            ("cg_step", lambda: K.cg_chain(sop, *cg0, CG_ITERS), CG_ITERS,
+             "cg_chain")):
+        whole = device_ms(torch, fn)
+        alone = device_ms(torch, fn, kernel=kern)
+        dev_ms[name] = None if alone is None else alone / steps
+        b_ms, b_by = bounds[name]
+        print(f"  {name} at n={N_MAIN}: device per step "
+              f"{fmt_ms(dev_ms[name])} ms (the chain kernel alone), "
+              f"{fmt_ms(None if whole is None else whole / steps)} ms (the "
+              f"whole call, its copies and fills included); bound "
+              f"{b_ms:.5f} ms ({b_by})", flush=True)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

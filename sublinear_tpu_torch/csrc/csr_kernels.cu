@@ -2,38 +2,28 @@
 // of sublinear_tpu_torch/ops/csr_spmv.py.
 //
 // What they replace (JAX/Pallas kernels of the reference package):
-//   csr_spmv      sublinear_tpu/ops/xbar.py::_fused_call, and the two-kernel
-//                 schedule of the same product ::_k1_call + ::_k2_call.  All
-//                 three compute y = R x over the crossbar-routed tables; here
-//                 the product reads a plain CSR of the off-diagonal entries.
-//                 With a diagonal pointer it also adds diag[i] * x[i], which
-//                 XbarOperator.matvec does in its epilogue.
-//   neumann_step  one pass of sublinear_tpu/ops/xbar.py::_chain_call:
-//                 y = R t_in, t_out = -inv_d * y, acc += t_out; on the last
-//                 pass of a chain also res = -y (with_residual=True) or
-//                 sum(y * y) into a double accumulator (with_residual="norm").
-//                 The wrapper launches it `iters` times on one stream.
-//   cg_step       one Jacobi-preconditioned CG step of
-//                 sublinear_tpu/ops/xbar.py::_cg_chain_call, as three
-//                 launches (cg_spmv_dot, cg_update, cg_direction; see below)
-//                 from one entry point, which the wrapper calls `iters` times
-//                 on one stream.
+//   csr_spmv      sublinear_tpu/ops/xbar.py::_fused_call (:348), and the
+//                 two-kernel schedule of the same product ::_k1_call (:247) +
+//                 ::_k2_call (:726).  All three compute y = R x over the
+//                 crossbar-routed tables; here the product reads a plain CSR
+//                 of the off-diagonal entries.  With a diagonal pointer it
+//                 also adds diag[i] * x[i], which XbarOperator.matvec does in
+//                 its epilogue.
+//   neumann_step  sublinear_tpu/ops/xbar.py::_chain_call (:490), the full
+//                 Neumann chain in one pallas_call: per step y = R t_in,
+//                 t_out = -inv_d * y, acc += t_out; on the last step also
+//                 res = -y (with_residual=True) or sum(y * y) into a double
+//                 (with_residual="norm").  One launch runs the whole chain.
+//   cg_step       sublinear_tpu/ops/xbar.py::_cg_chain_call (:619), a chain
+//                 of Jacobi-preconditioned CG steps in one pallas_call.  One
+//                 launch runs the whole chain.
 //
-// What bounds them on an H100: bytes, not arithmetic (2 flops per entry).
-// One product streams about 8 B per stored entry of CSR (a 4 B column index
-// and a 4 B value), gathers one 4 B x[col] per entry, and touches about 16 B
-// per row of vectors (row pointer, y or t_out, acc, inv_d).  At n = 100k,
-// density 1e-4 that is ~9 MB of matrix and ~2 MB of vectors; at n = 1M,
-// density 1e-5, ~80 MB of matrix, more than the 50 MB L2.  Each gather of
-// x[col] also moves a whole 32-byte L2 sector for its 4 bytes: ~320 MB of L2
-// traffic at n = 1M beside the ~96 MB the product must stream from HBM, so
-// once the stream runs at the HBM rate the L2 is the likely ceiling.
-//
-// csr_spmv streams contiguous ranges of entries (CSR-stream, as in
-// CSR-Adaptive).  ops/csr_spmv.py::spmv_row_blocks cuts the rows into blocks
-// of consecutive rows holding at most kTile off-diagonal entries and at most
-// kTileRows rows; a row of more than kLongRow entries is a block of its own.
-// One thread block of kStreamThreads threads serves one row block:
+// The product: a stream of row blocks (CSR-stream, as in CSR-Adaptive).
+// ops/csr_spmv.py::spmv_row_blocks cuts the rows into blocks of consecutive
+// rows holding at most kTile off-diagonal entries and at most kTileRows
+// rows; a row of more than kLongRow entries is a block of its own.
+// stream_row_block serves one row block with the kStreamThreads threads of a
+// thread block and hands each finished row's sum to an epilogue:
 //   - short rows: every thread loads kPerThread (index, value) pairs of the
 //     block's entry range with independent coalesced loads, then issues its
 //     kPerThread gathers of x, each batch before any of it is used, so that
@@ -44,69 +34,82 @@
 //     csr_spmv(x) equals csr_spmm(x[:, None])[:, 0] bit for bit;
 //   - a long row: every thread sums its share (entries t, t + kStreamThreads,
 //     ...) in CSR order, then a fixed shuffle tree and the warps' sums in
-//     order: the same bits on every run;
-//   - the epilogue __fadd_rn(sum, __fmul_rn(diag, x)) is unchanged.
-// A block's 9 KB of shared memory lets 8 blocks (2048 threads) share an
-// SM.  Measured at n = 100k (density 1e-4) and n = 1M (density 1e-5), the
-// shapes of the Neumann and BiCGSTAB solves, on an H100 at 700 W: 0.011 ms
+//     order: the same bits on every run.
+// The three kernels differ only in their epilogues, so the Neumann step's y
+// equals csr_spmv(t_in) and the CG step's q equals csr_spmv(p, diag) bit for
+// bit.
+//
+// csr_spmv launches one thread block per row block.  Its bound on an H100:
+// bytes, not arithmetic (2 flops per entry): ~8 B per stored entry of CSR
+// and ~16 B per row of vectors, beside a gather of x[col] per entry that
+// moves a whole 32-byte L2 sector for its 4 bytes.  Measured at n = 100k
+// (density 1e-4) and n = 1M (density 1e-5) on an H100 at 700 W: 0.011 ms
 // and 0.094 ms of device time, 26% and 31% of the HBM bound, about the time
 // of the bare gather of every x[col] alone (torch index_select: 0.0096 and
-// 0.090 ms); at n = 1M every tile of 512-4096 entries and block of 128-512
-// threads took 0.096-0.098 ms per back-to-back call
-// (sweep_sparse_kernels.py).  So the gathers' L2 sectors, not the stream,
-// bound it.
+// 0.090 ms; sweep_sparse_kernels.py).  So the gathers' L2 sectors, not the
+// stream, bound it.
 //
-// neumann_step and cg_spmv_dot keep the earlier row loop (row_product): a
-// group of kGroup = 8 lanes per row reads the row's indices and values in
-// one or two coalesced sweeps and reduces with __shfl_down_sync, in f32
-// (the precision of the JAX package's kernels); x is gathered through the
-// read-only cache (__ldg).  The chain's norm is reduced inside the kernel
-// (warp shuffle, then a shared-memory block sum, then one atomicAdd(double*)
-// per block), so the verified solve reads back one scalar.
-//
-// The CG step.  On the TPU the chain's grid ran in order and carried x, r, p
-// in VMEM and rz in SMEM.  Here blocks run in no order, and each of the
-// step's two dot products is a grid-wide reduction whose result the next
-// phase needs everywhere, so a launch boundary on one stream (no host sync)
-// is the grid barrier, as in neumann_step:
-//   cg_spmv_dot   q = R p + diag * p (row_product, the csr_spmv epilogue),
-//                 and p.q into scal[2j+1];
-//   cg_update     alpha = rz / max(p.q, TINY); x += alpha p; r -= alpha q;
-//                 z = inv_d * r; r.z into scal[2j+2] (and r.r on the last
-//                 step into scal[2*iters+1]);
-//   cg_direction  beta = r.z / max(rz, TINY); p = z + beta p (z recomputed
-//                 from r, the same bits), which must be complete before the
-//                 next step's product gathers p at other rows.
-// scal is one double array of 2*iters + 2 slots that the wrapper zeroes once
-// per chain, with scal[0] = rz on entry: every dot has its own slot, so no
-// launch reads a slot that a block of the same launch writes, and no memset
-// runs between launches.  Dots accumulate in f64 (per-thread, then warp
-// shuffle, block sum, one atomicAdd per block) and are rounded to f32 before
-// the scalar arithmetic; the vector updates are f32 without FMA contraction,
-// so the plain version (ops/csr_spmv.py::cg_chain_plain) differs from the
-// kernel only in summation order.
-// What bounds a step: bytes.  About 12 B per stored entry (column, value and
-// the gathered p) plus about 60 B per row over the three launches (p, q, x,
-// r, diag, inv_d read or written).  At n = 100k with ~1.0M off-diagonal
-// entries that is ~18 MB, which stays in the 50 MB L2 across the chain.  The
-// dot kernels run a grid-stride loop over at most kMaxBlocks blocks, which
-// bounds the same-address atomics per launch.
+// The chains.  On the TPU a chain's grid ran in order on one core and
+// carried its vectors in VMEM.  Here each chain is one persistent
+// cooperative kernel: the wrapper sizes the grid from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SM count, so that
+// every block is resident, launches it with cudaLaunchCooperativeKernel, and
+// each block walks the row blocks grid-stride.  A grid barrier
+// (cooperative_groups::this_grid().sync()) stands where a launch boundary
+// stood: a step's product gathers vector entries that other blocks wrote in
+// the step before.  Those gathers are plain loads, never the read-only
+// path (__ldg), because the vectors change during the kernel; grid.sync()
+// orders the writes of one step before the loads of the next.  Plain loads
+// keep L1 hits that loads through L2 alone (__ldcg) lose, and the chains
+// stream the CSR evict-first (__ldcs) so that at n = 1M the 80 MB stream
+// does not push the gathered vector out of L1.  Device time per step on an
+// H100 at 700 W (chain_times.py; __ldcg gathers / plain gathers / plain
+// gathers and an evict-first CSR): Neumann 0.0138 / 0.0122-0.0131 /
+// 0.0131 ms at n = 100k and 0.1066 / 0.1100-0.1107 / 0.1045 ms at n = 1M;
+// CG 0.0244 / 0.0177 / 0.0172-0.0176 ms and 0.1174 / 0.1128-0.1131 /
+// 0.1066 ms.
+//   neumann_chain  one barrier per step; t_in and t_out ping-pong between
+//                  two buffers (t_out is never the buffer being gathered).
+//   cg_chain       three phases per step, a barrier after each:
+//                  1. q = R p + diag * p, and p.q into scal[2j+1];
+//                  2. alpha = rz / max(p.q, TINY); x += alpha p;
+//                     r -= alpha q; r.z (z = inv_d * r) into scal[2j+2], and
+//                     r.r into scal[2*iters+1] on the last step;
+//                  3. beta = r.z / max(rz, TINY); p = z + beta p.
+// scal is one double array of 2*iters + 2 slots that the wrapper zeroes
+// once per chain; rz of step 0 comes from the caller's f32 scalar: every dot
+// has its own slot, so no phase reads a slot that the same phase writes.
+// Dots accumulate in f64 (per thread, then warp shuffle, block sum, one
+// atomicAdd per block and phase) and are rounded to f32 before the scalar
+// arithmetic; the vector updates are f32 without FMA contraction, so the
+// plain versions (ops/csr_spmv.py) differ from the kernels only in summation
+// order.
+// What bounds a chain.  At n = 100k (density 1e-4: ~1.1M entries, ~9 MB of
+// CSR and ~2 MB of vectors) the working set stays in the 50 MB L2 across
+// the chain: a step is bounded by the gathers' L2 sectors, as csr_spmv is,
+// plus the grid barriers (one per Neumann step, three per CG step), and the
+// single launch removes the per-step host launches that made the chains
+// launch-bound.  At n = 1M (~80 MB of CSR, more than L2) a step streams the
+// CSR from HBM and is bounded by the gathers, as csr_spmv at that size;
+// the row-block stream keeps 4 gathers per thread in flight for that, and
+// the barriers are a small share of a ~0.1 ms step.
 //
 // Interface: plain C, loaded with ctypes.  Every entry point launches on the
 // given stream, does not synchronise, allocates nothing, and returns
-// cudaGetLastError() (0 on success).
+// cudaGetLastError() or the launch's error (0 on success).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cgr = cooperative_groups;
 
 namespace {
 
-constexpr int kGroup = 8;    // lanes per row
-constexpr int kBlock = 256;  // threads per block (32 rows)
-constexpr int kMaxBlocks = 2048;  // grid cap of the CG kernels
 constexpr float kTiny = 1e-30f;   // _cg_chain_call's TINY
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;
 
-// csr_spmv's row blocks: the same numbers as SPMV_TILE, SPMV_ROWS and
+// The row blocks: the same numbers as SPMV_TILE, SPMV_ROWS and
 // SPMV_LONG_ROW in ops/csr_spmv.py, which cuts the partition (a test holds
 // the two files to each other)
 constexpr int kStreamThreads = 256;
@@ -117,68 +120,44 @@ constexpr int kPerThread = kTile / kStreamThreads;
 static_assert(kTile % kStreamThreads == 0, "whole loads per thread");
 static_assert(kLongRow <= kTile, "a short row fits a tile");
 
-// Sum over one row of vals[j] * x[indices[j]], spread over the kGroup lanes
-// of the calling thread's group.  Every thread of the block must call it
-// (the shuffle names the full warp); the sum is valid in lane 0 of the group.
-__device__ __forceinline__ float row_product(
-    int row, int lane, int n, const int* __restrict__ indptr,
-    const int* __restrict__ indices, const float* __restrict__ vals,
-    const float* __restrict__ x) {
-  float sum = 0.0f;
-  if (row < n) {
-    const int end = indptr[row + 1];
-    for (int j = indptr[row] + lane; j < end; j += kGroup) {
-      sum = fmaf(vals[j], __ldg(x + indices[j]), sum);
-    }
-  }
-#pragma unroll
-  for (int offset = kGroup / 2; offset > 0; offset >>= 1) {
-    sum += __shfl_down_sync(0xffffffffu, sum, offset, kGroup);
-  }
-  return sum;
+struct StreamSmem {
+  float val[kTile];
+  float x[kTile];
+  int ptr[kTileRows + 1];
+  float warp[kStreamThreads / 32];
+};
+
+// kChain: a load of a chain kernel, whose gathered vector other blocks write
+// between grid barriers (grid.sync() orders those writes before the loads).
+// A gather of x: a plain load in a chain, the read-only path in csr_spmv,
+// where x is constant for the kernel's lifetime.
+template <bool kChain>
+__device__ __forceinline__ float load_x(const float* p) {
+  return kChain ? *p : __ldg(p);
 }
 
-// Adds the block's sum of v into *dst with one atomicAdd.  Every thread of
-// the block must call it.
-__device__ __forceinline__ void block_sum_into(double v, double* dst) {
-  __shared__ double warp_sums[kBlock / 32];
-#pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, offset);
-  }
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x / 32] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double total = 0.0;
-#pragma unroll
-    for (int w = 0; w < kBlock / 32; ++w) total += warp_sums[w];
-    atomicAdd(dst, total);
-  }
-  __syncthreads();  // warp_sums may be reused by a second call
+// A load of the CSR stream: evict-first in a chain, which keeps L1 for the
+// gathers, the read-only path in csr_spmv.
+template <bool kChain, class T>
+__device__ __forceinline__ T load_csr(const T* p) {
+  return kChain ? __ldcs(p) : __ldg(p);
 }
 
-// sum + diag[row] * x[row] without FMA contraction: the same rounding as
-// R x + diag * x
-__device__ __forceinline__ float add_diag(float sum, int row,
-                                          const float* __restrict__ diag,
-                                          const float* __restrict__ x) {
-  return diag == nullptr ? sum : __fadd_rn(sum, __fmul_rn(diag[row], x[row]));
-}
-
-// One thread block per row block [row_blocks[b], row_blocks[b + 1]); see the
-// note at the top.
-__global__ void __launch_bounds__(kStreamThreads) csr_spmv_kernel(
-    const int* __restrict__ row_blocks, const int* __restrict__ indptr,
-    const int* __restrict__ indices, const float* __restrict__ vals,
-    const float* __restrict__ x, const float* __restrict__ diag,
-    float* __restrict__ y) {
-  __shared__ float s_val[kTile];
-  __shared__ float s_x[kTile];
-  __shared__ int s_ptr[kTileRows + 1];
-  __shared__ float s_warp[kStreamThreads / 32];
+// Serves row block [row_blocks[b], row_blocks[b + 1]) with the whole thread
+// block: calls ep(row, sum) once for each row of it, from one thread, with
+// sum = the row's sum of vals[j] * x[indices[j]] (see the note at the top).
+// Every thread of the block must call it with the same b; a caller that
+// serves a second row block with the same StreamSmem calls __syncthreads()
+// between the two.
+template <bool kChain, class Epilogue>
+__device__ __forceinline__ void stream_row_block(
+    int b, const int* __restrict__ row_blocks,
+    const int* __restrict__ indptr, const int* __restrict__ indices,
+    const float* __restrict__ vals, const float* x, StreamSmem& s,
+    Epilogue& ep) {
   const int t = threadIdx.x;
-  const int r0 = row_blocks[blockIdx.x];
-  const int r1 = row_blocks[blockIdx.x + 1];
+  const int r0 = row_blocks[b];
+  const int r1 = row_blocks[b + 1];
   const int e0 = indptr[r0];
   const int e1 = indptr[r1];
   float sum = 0.0f;
@@ -190,13 +169,13 @@ __global__ void __launch_bounds__(kStreamThreads) csr_spmv_kernel(
 #pragma unroll
       for (int i = 0; i < kPerThread; ++i) {
         const int j = base + t + i * kStreamThreads;
-        col[i] = j < e1 ? __ldg(indices + j) : 0;
-        val[i] = j < e1 ? __ldg(vals + j) : 0.0f;
+        col[i] = j < e1 ? load_csr<kChain>(indices + j) : 0;
+        val[i] = j < e1 ? load_csr<kChain>(vals + j) : 0.0f;
       }
 #pragma unroll
       for (int i = 0; i < kPerThread; ++i) {
         const int j = base + t + i * kStreamThreads;
-        xv[i] = j < e1 ? __ldg(x + col[i]) : 0.0f;
+        xv[i] = j < e1 ? load_x<kChain>(x + col[i]) : 0.0f;
       }
 #pragma unroll
       for (int i = 0; i < kPerThread; ++i) {
@@ -207,13 +186,13 @@ __global__ void __launch_bounds__(kStreamThreads) csr_spmv_kernel(
     for (int offset = 16; offset > 0; offset >>= 1) {
       sum += __shfl_down_sync(kFull, sum, offset);
     }
-    if ((t & 31) == 0) s_warp[t / 32] = sum;
+    if ((t & 31) == 0) s.warp[t / 32] = sum;
     __syncthreads();
     if (t == 0) {
-      float total = s_warp[0];
+      float total = s.warp[0];
 #pragma unroll
-      for (int w = 1; w < kStreamThreads / 32; ++w) total += s_warp[w];
-      y[r0] = add_diag(total, r0, diag, x);
+      for (int w = 1; w < kStreamThreads / 32; ++w) total += s.warp[w];
+      ep(r0, total);
     }
     return;
   }
@@ -225,122 +204,223 @@ __global__ void __launch_bounds__(kStreamThreads) csr_spmv_kernel(
 #pragma unroll
   for (int i = 0; i < kPerThread; ++i) {
     const int k = t + i * kStreamThreads;
-    col[i] = k < cnt ? __ldg(indices + e0 + k) : 0;
-    val[i] = k < cnt ? __ldg(vals + e0 + k) : 0.0f;
+    col[i] = k < cnt ? load_csr<kChain>(indices + e0 + k) : 0;
+    val[i] = k < cnt ? load_csr<kChain>(vals + e0 + k) : 0.0f;
   }
 #pragma unroll
   for (int i = 0; i < kPerThread; ++i) {
     const int k = t + i * kStreamThreads;
-    xv[i] = k < cnt ? __ldg(x + col[i]) : 0.0f;
+    xv[i] = k < cnt ? load_x<kChain>(x + col[i]) : 0.0f;
   }
 #pragma unroll
   for (int i = 0; i < kPerThread; ++i) {
     const int k = t + i * kStreamThreads;
     if (k < cnt) {
-      s_val[k] = val[i];
-      s_x[k] = xv[i];
+      s.val[k] = val[i];
+      s.x[k] = xv[i];
     }
   }
-  if (t <= r1 - r0) s_ptr[t] = indptr[r0 + t] - e0;
-  if (t == 0 && r1 - r0 == kTileRows) s_ptr[kTileRows] = cnt;
+  if (t <= r1 - r0) s.ptr[t] = indptr[r0 + t] - e0;
+  if (t == 0 && r1 - r0 == kTileRows) s.ptr[kTileRows] = cnt;
   __syncthreads();
   const int row = r0 + t;
   if (row < r1) {
-    const int end = s_ptr[t + 1];
-    for (int k = s_ptr[t]; k < end; ++k) sum = fmaf(s_val[k], s_x[k], sum);
-    y[row] = add_diag(sum, row, diag, x);
+    const int end = s.ptr[t + 1];
+    for (int k = s.ptr[t]; k < end; ++k) sum = fmaf(s.val[k], s.x[k], sum);
+    ep(row, sum);
   }
 }
 
-__global__ void __launch_bounds__(kBlock) neumann_step_kernel(
-    int n, const int* __restrict__ indptr, const int* __restrict__ indices,
-    const float* __restrict__ vals, const float* __restrict__ t_in,
-    const float* __restrict__ inv_d, float* __restrict__ t_out,
-    float* __restrict__ acc, float* __restrict__ res,
-    double* __restrict__ res2) {
-  const long long tid = (long long)blockIdx.x * kBlock + threadIdx.x;
-  const int row = (int)(tid / kGroup);
-  const int lane = (int)(tid % kGroup);
-  const float y = row_product(row, lane, n, indptr, indices, vals, t_in);
-  double sq = 0.0;
-  if (lane == 0 && row < n) {
+// Adds the block's sum of v into *dst with one atomicAdd.  Every thread of
+// the block must call it.
+__device__ __forceinline__ void block_sum_into(double v, double* dst) {
+  __shared__ double warp_sums[kStreamThreads / 32];
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    v += __shfl_down_sync(kFull, v, offset);
+  }
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x / 32] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double total = 0.0;
+#pragma unroll
+    for (int w = 0; w < kStreamThreads / 32; ++w) total += warp_sums[w];
+    atomicAdd(dst, total);
+  }
+  __syncthreads();  // warp_sums may be reused by a second call
+}
+
+// sum + diag[row] * x_row without FMA contraction: the same rounding as
+// R x + diag * x
+__device__ __forceinline__ float add_diag(float sum, float diag, float x) {
+  return __fadd_rn(sum, __fmul_rn(diag, x));
+}
+
+struct SpmvEpilogue {
+  const float* diag;
+  const float* x;
+  float* y;
+  __device__ void operator()(int row, float sum) const {
+    y[row] = diag == nullptr ? sum : add_diag(sum, diag[row], x[row]);
+  }
+};
+
+// One thread block per row block; see the note at the top.
+__global__ void __launch_bounds__(kStreamThreads) csr_spmv_kernel(
+    const int* __restrict__ row_blocks, const int* __restrict__ indptr,
+    const int* __restrict__ indices, const float* __restrict__ vals,
+    const float* __restrict__ x, const float* __restrict__ diag,
+    float* __restrict__ y) {
+  __shared__ StreamSmem s;
+  SpmvEpilogue ep{diag, x, y};
+  stream_row_block<false>(blockIdx.x, row_blocks, indptr, indices, vals, x,
+                          s, ep);
+}
+
+// A Neumann step's epilogue: t_out = -inv_d * y, acc += t_out; on the last
+// step res = -y (res non-null) and y * y into sq (for the "norm").
+struct NeumannEpilogue {
+  const float* inv_d;
+  float* t_out;
+  float* acc;
+  float* res;
+  bool last;
+  double sq;
+  __device__ void operator()(int row, float y) {
     const float t = -__fmul_rn(inv_d[row], y);
     t_out[row] = t;
     acc[row] = __fadd_rn(acc[row], t);
-    if (res != nullptr) res[row] = -y;
-    sq = (double)y * (double)y;
-  }
-  // the same for every block of the launch
-  if (res2 != nullptr) block_sum_into(sq, res2);
-}
-
-__global__ void __launch_bounds__(kBlock) cg_spmv_dot_kernel(
-    int n, const int* __restrict__ indptr, const int* __restrict__ indices,
-    const float* __restrict__ vals, const float* __restrict__ diag,
-    const float* __restrict__ p, float* __restrict__ q,
-    double* __restrict__ pq) {
-  const long long lanes = (long long)n * kGroup;
-  double part = 0.0;
-  // base is the same for every thread of the block, so the loop (and the
-  // shuffle inside row_product) is block-uniform
-  for (long long base = (long long)blockIdx.x * kBlock; base < lanes;
-       base += (long long)gridDim.x * kBlock) {
-    const long long tid = base + threadIdx.x;
-    const int row = (int)(tid / kGroup);
-    const int lane = (int)(tid % kGroup);
-    float sum = row_product(row, lane, n, indptr, indices, vals, p);
-    if (lane == 0 && row < n) {
-      const float pi = p[row];
-      sum = __fadd_rn(sum, __fmul_rn(diag[row], pi));
-      q[row] = sum;
-      part += (double)pi * (double)sum;
+    if (last) {
+      if (res != nullptr) res[row] = -y;
+      sq += (double)y * (double)y;
     }
   }
-  block_sum_into(part, pq);
-}
+};
 
-__global__ void __launch_bounds__(kBlock) cg_update_kernel(
-    int n, float* __restrict__ x, float* __restrict__ r,
-    const float* __restrict__ p, const float* __restrict__ q,
-    const float* __restrict__ inv_d, const double* __restrict__ scal_j,
-    double* __restrict__ rz_next, double* __restrict__ rr) {
-  // scal_j[0] = rz of this step, scal_j[1] = its finished p.q
-  const float alpha = (float)scal_j[0] / fmaxf((float)scal_j[1], kTiny);
-  double rz_part = 0.0, rr_part = 0.0;
-  for (long long i = (long long)blockIdx.x * kBlock + threadIdx.x; i < n;
-       i += (long long)gridDim.x * kBlock) {
-    x[i] = __fadd_rn(x[i], __fmul_rn(alpha, p[i]));
-    const float ri = __fsub_rn(r[i], __fmul_rn(alpha, q[i]));
-    r[i] = ri;
-    rz_part += (double)ri * (double)__fmul_rn(inv_d[i], ri);
-    rr_part += (double)ri * (double)ri;
-  }
-  block_sum_into(rz_part, rz_next);
-  if (rr != nullptr) block_sum_into(rr_part, rr);  // uniform per launch
-}
-
-__global__ void __launch_bounds__(kBlock) cg_direction_kernel(
-    int n, const float* __restrict__ r, const float* __restrict__ inv_d,
-    float* __restrict__ p, const double* __restrict__ scal_j,
-    const double* __restrict__ rr, float* __restrict__ out) {
-  // scal_j[0] = rz of this step, scal_j[2] = the finished r.z after it
-  const float rz_new = (float)scal_j[2];
-  const float beta = rz_new / fmaxf((float)scal_j[0], kTiny);
-  for (long long i = (long long)blockIdx.x * kBlock + threadIdx.x; i < n;
-       i += (long long)gridDim.x * kBlock) {
-    p[i] = __fadd_rn(__fmul_rn(inv_d[i], r[i]), __fmul_rn(beta, p[i]));
-  }
-  if (out != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
-    out[0] = rz_new;
-    out[1] = (float)*rr;
+// The chain of `iters` Neumann steps from t0 (see the note at the top):
+// step j writes t_out = bufs[j % 2]; acc holds t0 on entry.
+__global__ void __launch_bounds__(kStreamThreads) neumann_chain_kernel(
+    int n_blocks, const int* __restrict__ row_blocks,
+    const int* __restrict__ indptr, const int* __restrict__ indices,
+    const float* __restrict__ vals, const float* __restrict__ inv_d,
+    const float* t0, float* buf0, float* buf1, float* acc, float* res,
+    double* res2, int iters) {
+  __shared__ StreamSmem s;
+  cgr::grid_group grid = cgr::this_grid();
+  const float* t_in = t0;
+  for (int j = 0; j < iters; ++j) {
+    float* t_out = (j & 1) ? buf1 : buf0;
+    NeumannEpilogue ep{inv_d, t_out, acc, res, j == iters - 1, 0.0};
+    for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+      __syncthreads();  // the previous row block has left shared memory
+      stream_row_block<true>(b, row_blocks, indptr, indices, vals, t_in, s,
+                             ep);
+    }
+    if (j < iters - 1) {
+      grid.sync();  // t_out complete before the next step gathers it
+    } else if (res2 != nullptr) {
+      block_sum_into(ep.sq, res2);
+    }
+    t_in = t_out;
   }
 }
 
-int grid_for(int n) {
-  return (int)(((long long)n * kGroup + kBlock - 1) / kBlock);
+// A CG step's product epilogue: q = y + diag * p (csr_spmv's rounding), and
+// p.q into part.
+struct CgEpilogue {
+  const float* diag;
+  const float* p;
+  float* q;
+  double part;
+  __device__ void operator()(int row, float sum) {
+    const float pi = p[row];
+    const float qi = add_diag(sum, diag[row], pi);
+    q[row] = qi;
+    part += (double)pi * (double)qi;
+  }
+};
+
+// The chain of `iters` CG steps (see the note at the top): x, r, p are
+// updated in place, q is the product's buffer, scal the zeroed dot slots,
+// rz0 the f32 rz of step 0; out = (rz, r.r) after the last step, as f32.
+__global__ void __launch_bounds__(kStreamThreads) cg_chain_kernel(
+    int n, int n_blocks, const int* __restrict__ row_blocks,
+    const int* __restrict__ indptr, const int* __restrict__ indices,
+    const float* __restrict__ vals, const float* __restrict__ diag,
+    const float* __restrict__ inv_d, float* x, float* r, float* p, float* q,
+    double* scal, const float* rz0, int iters, float* out) {
+  __shared__ StreamSmem s;
+  cgr::grid_group grid = cgr::this_grid();
+  const long long stride = (long long)gridDim.x * kStreamThreads;
+  const long long first = (long long)blockIdx.x * kStreamThreads + threadIdx.x;
+  for (int j = 0; j < iters; ++j) {
+    const bool last = j == iters - 1;
+    double* scal_j = scal + 2 * j;
+    // 1. q = R p + diag * p; p.q into scal[2j+1]
+    CgEpilogue ep{diag, p, q, 0.0};
+    for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+      __syncthreads();
+      stream_row_block<true>(b, row_blocks, indptr, indices, vals, p, s, ep);
+    }
+    block_sum_into(ep.part, scal_j + 1);
+    grid.sync();
+    // 2. x += alpha p; r -= alpha q; r.z into scal[2j+2] (r.r last)
+    const float rz = j == 0 ? *rz0 : (float)__ldcg(scal_j);
+    const float alpha = rz / fmaxf((float)__ldcg(scal_j + 1), kTiny);
+    double rz_part = 0.0, rr_part = 0.0;
+    for (long long i = first; i < n; i += stride) {
+      x[i] = __fadd_rn(x[i], __fmul_rn(alpha, p[i]));
+      const float ri = __fsub_rn(r[i], __fmul_rn(alpha, q[i]));
+      r[i] = ri;
+      rz_part += (double)ri * (double)__fmul_rn(inv_d[i], ri);
+      rr_part += (double)ri * (double)ri;
+    }
+    block_sum_into(rz_part, scal_j + 2);
+    if (last) block_sum_into(rr_part, scal + 2 * iters + 1);
+    grid.sync();
+    // 3. p = z + beta p, complete before the next step's product gathers p
+    const float rz_new = (float)__ldcg(scal_j + 2);
+    const float beta = rz_new / fmaxf(rz, kTiny);
+    for (long long i = first; i < n; i += stride) {
+      p[i] = __fadd_rn(__fmul_rn(inv_d[i], r[i]), __fmul_rn(beta, p[i]));
+    }
+    if (!last) {
+      grid.sync();
+    } else if (blockIdx.x == 0 && threadIdx.x == 0) {
+      out[0] = rz_new;
+      out[1] = (float)__ldcg(scal + 2 * iters + 1);
+    }
+  }
 }
 
-int capped(int blocks) { return blocks < kMaxBlocks ? blocks : kMaxBlocks; }
+// The grid of a cooperative launch of `kernel`: as many blocks as are
+// resident on the card at once (blocks per SM from the occupancy calculator
+// times the SM count, cached per device), at most `want`, at least 1.
+template <class Kernel>
+cudaError_t cooperative_grid(Kernel kernel, int device, int* cache,
+                             long long want, int* grid) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cache[device] == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+    if (err != cudaSuccess) return err;
+    if (!coop) return cudaErrorNotSupported;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kStreamThreads, 0);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    cache[device] = per_sm * sms;
+  }
+  *grid = (int)(want < cache[device] ? (want > 0 ? want : 1) : cache[device]);
+  return cudaSuccess;
+}
+
+int neumann_grid_cache[kMaxDevices];
+int cg_grid_cache[kMaxDevices];
 
 }  // namespace
 
@@ -360,39 +440,54 @@ int slt_csr_spmv(int device, int n_blocks, const int* row_blocks,
   return (int)cudaGetLastError();
 }
 
-int slt_neumann_step(int device, int n, const int* indptr, const int* indices,
-                     const float* vals, const float* t_in, const float* inv_d,
-                     float* t_out, float* acc, float* res, double* res2,
-                     void* stream) {
+// The whole chain of `iters` >= 1 Neumann steps from t0, in one cooperative
+// launch: acc holds t0 on entry and the sum of the terms on exit; the last
+// term is in buf0 if iters is odd, else in buf1.  On the last step res = -y
+// if res is non-null and sum(y * y) is added into *res2 if res2 is non-null
+// (zeroed by the caller).
+int slt_neumann_chain(int device, int n_blocks, const int* row_blocks,
+                      const int* indptr, const int* indices,
+                      const float* vals, const float* inv_d, const float* t0,
+                      float* buf0, float* buf1, float* acc, float* res,
+                      double* res2, int iters, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  neumann_step_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
-      n, indptr, indices, vals, t_in, inv_d, t_out, acc, res, res2);
-  return (int)cudaGetLastError();
+  if (n_blocks < 1 || iters < 1) return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  err = cooperative_grid(neumann_chain_kernel, device, neumann_grid_cache,
+                         n_blocks, &grid);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&n_blocks, &row_blocks, &indptr, &indices, &vals, &inv_d,
+                  &t0,       &buf0,       &buf1,   &acc,     &res,  &res2,
+                  &iters};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)neumann_chain_kernel, grid, kStreamThreads, args, 0,
+      (cudaStream_t)stream);
 }
 
-// One CG step j of a chain of `iters` (see the note at the top): scal holds
-// 2*iters + 2 doubles, zeroed, with scal[0] = rz on entry.  On the last step
-// (last != 0) r.r goes into scal[2*iters+1] and out[0..1] = (rz, r.r) as f32.
-int slt_cg_step(int device, int n, const int* indptr, const int* indices,
-                const float* vals, const float* diag, const float* inv_d,
-                float* x, float* r, float* p, float* q, double* scal, int j,
-                int iters, int last, float* out, void* stream) {
+// The whole chain of `iters` >= 1 CG steps, in one cooperative launch (see
+// the note at the top): scal holds 2*iters + 2 zeroed doubles, rz0 the f32
+// rz of step 0; out[0..1] = (rz, r.r) after the last step, as f32.
+int slt_cg_chain(int device, int n, int n_blocks, const int* row_blocks,
+                 const int* indptr, const int* indices, const float* vals,
+                 const float* diag, const float* inv_d, float* x, float* r,
+                 float* p, float* q, double* scal, const float* rz0,
+                 int iters, float* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  double* scal_j = scal + 2 * j;
-  double* rr = last ? scal + 2 * iters + 1 : nullptr;
-  cg_spmv_dot_kernel<<<capped(grid_for(n)), kBlock, 0, s>>>(
-      n, indptr, indices, vals, diag, p, q, scal_j + 1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int blocks = capped((n + kBlock - 1) / kBlock);
-  cg_update_kernel<<<blocks, kBlock, 0, s>>>(n, x, r, p, q, inv_d, scal_j,
-                                             scal_j + 2, rr);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  cg_direction_kernel<<<blocks, kBlock, 0, s>>>(n, r, inv_d, p, scal_j, rr,
-                                                last ? out : nullptr);
-  return (int)cudaGetLastError();
+  if (n < 1 || n_blocks < 1 || iters < 1) return (int)cudaErrorInvalidValue;
+  // the product walks the row blocks, the updates the n rows
+  const long long rows = ((long long)n + kStreamThreads - 1) / kStreamThreads;
+  int grid = 0;
+  err = cooperative_grid(cg_chain_kernel, device, cg_grid_cache,
+                         rows > n_blocks ? rows : n_blocks, &grid);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&n,   &n_blocks, &row_blocks, &indptr, &indices, &vals,
+                  &diag, &inv_d,   &x,          &r,      &p,       &q,
+                  &scal, &rz0,     &iters,      &out};
+  return (int)cudaLaunchCooperativeKernel((const void*)cg_chain_kernel, grid,
+                                          kStreamThreads, args, 0,
+                                          (cudaStream_t)stream);
 }
 
 const char* slt_error_string(int code) {

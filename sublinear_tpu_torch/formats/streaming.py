@@ -5,7 +5,7 @@ build above ``memory_budget_bytes()`` raises MemoryLimitError (E007) before
 allocating.  The budget is 80% of the card's memory
 (``torch.cuda.mem_get_info``), overridable with SLT_MEMORY_LIMIT_BYTES.
 The ``StreamingOperator`` and ``solve_streaming`` are still to be ported
-(ROADMAP queue 1, item 2).
+(ROADMAP queue 1, item 5).
 """
 from __future__ import annotations
 

@@ -190,6 +190,27 @@ class Matrix:
                         self._ops[key] = pack_csr(csr, self.device)
         return self._ops[key]
 
+    def reorder_rcm(self):
+        """Bandwidth-reducing symmetric permutation (reverse Cuthill-McKee,
+        on the host).
+
+        Returns ``(B, perm)`` where ``B = P A P^T`` (``B[i, j] =
+        A[perm[i], perm[j]]``).  To solve ``A x = b``: solve
+        ``B y = b[perm]`` then ``x[perm] = y``.  RCM often shrinks a
+        mesh or graph matrix's bandwidth enough for the DIA operator."""
+        if not self.is_square():
+            raise InvalidMatrixError("RCM reordering requires a square matrix")
+        from .ordering import rcm_ordering
+
+        csr, t = self.csr, self.T_csr()
+        n = csr.shape[0]
+        perm = rcm_ordering(csr.indptr, csr.indices, t.indptr, t.indices, n)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(n)
+        rows, cols, vals = csr.to_coo()
+        return Matrix.from_coo(inv[rows], inv[cols], vals, self.shape,
+                               device=self.device), perm
+
     def T_csr(self) -> CSR:
         if self._transpose_csr is None:
             self._transpose_csr = self.csr.transpose()
@@ -205,6 +226,34 @@ class Matrix:
         if v.size != n:
             raise DimensionMismatchError(f"vector length {v.size} != matrix dim {n}")
         return _ell.pad_vector(v, op.n_pad, op.dtype, self.device)
+
+    # ------------------------------------------------------------ host ops
+    def matvec(self, x) -> np.ndarray:
+        return self.csr.matvec(x)
+
+    def to_dense(self) -> np.ndarray:
+        return self.csr.to_dense()
+
+    def to_dict(self, fmt: str = "coo") -> dict:
+        n, m = self.shape
+        if fmt == "dense":
+            return {"rows": n, "cols": m, "data": self.to_dense().tolist(),
+                    "format": "dense"}
+        r, c, v = self.csr.to_coo()
+        return {
+            "rows": n,
+            "cols": m,
+            "values": v.tolist(),
+            "rowIndices": r.tolist(),
+            "colIndices": c.tolist(),
+            "format": "coo",
+        }
+
+    def transpose(self) -> "Matrix":
+        return Matrix(self.T_csr(), prefer=self._prefer, device=self.device)
+
+    def diagonal_vector(self) -> np.ndarray:
+        return self.csr.diagonal_vector()
 
     def dominance_gap(self) -> float:
         """alpha = min_i (|a_ii| - sum_{j!=i} |a_ij|); > 0 iff strictly row

@@ -31,8 +31,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "csr_kernels": {
         "slt_csr_spmv": [_I, _I] + [_P] * 8,
-        "slt_neumann_step": [_I, _I] + [_P] * 10,
-        "slt_cg_step": [_I, _I] + [_P] * 10 + [_I, _I, _I, _P, _P],
+        "slt_neumann_chain": [_I, _I] + [_P] * 11 + [_I, _P],
+        "slt_cg_chain": [_I] * 3 + [_P] * 12 + [_I, _P, _P],
     },
     "dense_kernels": {
         "slt_dense_neumann": [_I, _I, _I] + [_P] * 6 + [_I] + [_P] * 4,

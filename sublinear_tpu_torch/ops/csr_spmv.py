@@ -13,12 +13,13 @@ Kernels (``csrc/csr_kernels.cu``, built by ``ops/_kernels.py``):
   ``csr_spmv``      y = R x (+ diag * x): replaces ``_fused_call`` and
                     ``_k1_call`` + ``_k2_call``; one thread block streams
                     each block of ``CsrOperator.row_blocks``;
-  ``neumann_step``  one pass of ``_chain_call``; ``neumann_chain`` launches
-                    it ``iters`` times on the current stream;
-  ``cg_step``       one Jacobi-PCG step of ``_cg_chain_call`` (three
-                    launches: product and p.q, update and r.z, direction);
-                    ``cg_chain`` runs it ``iters`` times on the current
-                    stream.
+  ``neumann_step``  ``_chain_call``: ``neumann_chain`` runs a whole chain
+                    of Neumann steps as one cooperative launch;
+  ``cg_step``       ``_cg_chain_call``: ``cg_chain`` runs a whole chain of
+                    Jacobi-PCG steps (product and p.q, update and r.z,
+                    direction) as one cooperative launch.
+Both chains compute each step's product with ``csr_spmv``'s row-block
+stream, so their products equal ``csr_spmv``'s bit for bit.
 Kernel (``csrc/spmm_kernels.cu``):
   ``csr_spmm``      Y = R X (+ diag * X) for a block of columns X (m, B),
                     with the f32 product (``CsrOperator.matmat``, the batch
@@ -27,7 +28,8 @@ Kernel (``csrc/spmm_kernels.cu``):
 Each has a plain PyTorch version beside it (``csr_spmv_plain``,
 ``neumann_chain_plain``, ``cg_chain_plain``, ``csr_spmm_plain``).  A CPU
 tensor takes the plain version; a CUDA tensor launches the kernel or raises.
-``LAUNCHES`` counts kernel launches (one ``cg_step`` count per CG step).
+``LAUNCHES`` counts kernel launches (one per chain for the two chains),
+``STEPS`` the steps the chains ran.
 The wrappers check an operator's own arrays once (cached against their data
 pointers) and each call's vectors every call.
 """
@@ -42,6 +44,7 @@ from ._kernels import library, ptr, raise_on, stream_of
 from .dense_fused import split_bf16
 
 LAUNCHES = {"csr_spmv": 0, "neumann_step": 0, "cg_step": 0, "csr_spmm": 0}
+STEPS = {"neumann_step": 0, "cg_step": 0}
 # csr_spmm's products: f32, onehot_spmm(precise=True), onehot_spmm(precise=False)
 SPMM_MODES = {"f32": 0, "split": 1, "bf16": 2}
 
@@ -124,9 +127,9 @@ class CsrOperator:
 
     @property
     def chain_ready(self) -> bool:
-        """True when the Neumann recurrence can run as a chain of
-        ``neumann_step`` launches: a square operator with the diagonal split
-        out (every square CsrOperator)."""
+        """True when the Neumann and CG recurrences can run as chains
+        (``neumann_chain``, ``cg_chain``): a square operator with the
+        diagonal split out (every square CsrOperator)."""
         return self.diag_split and self.shape[0] == self.shape[1]
 
     def neumann_chain(self, term0: torch.Tensor, iters: int,
@@ -427,9 +430,10 @@ def csr_spmm(op: CsrOperator, X: torch.Tensor, diag=None,
 
 def neumann_chain(op: CsrOperator, term0: torch.Tensor, iters: int,
                   with_residual=False):
-    """``iters`` launches of ``neumann_step`` from ``term0`` (f32); returns
-    ``(acc, last_term)`` plus ``res`` (vector, or 0-d ||res||^2 for
-    ``"norm"``) as ``CsrOperator.neumann_chain`` documents."""
+    """``iters`` Neumann steps from ``term0`` (f32) in one launch of the
+    ``neumann_step`` chain kernel; returns ``(acc, last_term)`` plus ``res``
+    (vector, or 0-d ||res||^2 for ``"norm"``) as
+    ``CsrOperator.neumann_chain`` documents."""
     if iters < 1:
         raise ValueError(f"neumann_chain needs iters >= 1, got {iters}")
     if with_residual not in (False, True, "norm"):
@@ -441,40 +445,38 @@ def neumann_chain(op: CsrOperator, term0: torch.Tensor, iters: int,
     n = op.n_pad
     device, indptr, indices, vals = _check_operands(
         op, term0=(term0, n), inv_diag=(op.inv_diag, n))
+    blocks = op.row_blocks
     lib = library("csr_kernels")
     acc = term0.clone()
     # ping-pong: a row's gather reads other rows of t_in, so t_out is
-    # never the buffer being read
+    # never the buffer being read; step j writes bufs[j % 2]
     bufs = (torch.empty_like(term0), torch.empty_like(term0))
     norm = with_residual == "norm"
     res = torch.empty_like(term0) if with_residual and not norm else None
     res2 = (torch.zeros((), dtype=torch.float64, device=term0.device)
             if norm else None)
-    stream = stream_of(term0)
-    t_in = term0
-    for j in range(iters):
-        last = j == iters - 1
-        t_out = bufs[j % 2]
-        LAUNCHES["neumann_step"] += 1
-        rc = lib.slt_neumann_step(
-            device, n, indptr, indices, vals,
-            ptr(t_in), ptr(op.inv_diag), ptr(t_out), ptr(acc),
-            ptr(res if last else None), ptr(res2 if last else None),
-            stream)
-        raise_on(rc, "neumann_step", lib)
-        t_in = t_out
+    LAUNCHES["neumann_step"] += 1
+    STEPS["neumann_step"] += iters
+    rc = lib.slt_neumann_chain(
+        device, blocks.numel() - 1, blocks.data_ptr(), indptr, indices, vals,
+        ptr(op.inv_diag), ptr(term0), ptr(bufs[0]), ptr(bufs[1]), ptr(acc),
+        ptr(res), ptr(res2), iters, stream_of(term0))
+    raise_on(rc, "neumann_step", lib)
+    last = bufs[(iters - 1) % 2]
     if norm:
-        return acc, t_in, res2.to(torch.float32)
+        return acc, last, res2.to(torch.float32)
     if with_residual:
-        return acc, t_in, res
-    return acc, t_in
+        return acc, last, res
+    return acc, last
 
 
-def cg_chain(op: CsrOperator, x, r, p, rz, iters: int):
-    """``iters`` CG steps of ``cg_step`` from the f32 state (x, r, p) and the
-    0-d f32 ``rz``; returns ``(x, r, p, rz, res2)`` as
-    ``CsrOperator.cg_chain`` documents.  On the card the state is copied once
-    and then updated in place by the kernels."""
+def cg_chain(op: CsrOperator, x, r, p, rz, iters: int, *, q_out=None):
+    """``iters`` CG steps from the f32 state (x, r, p) and the 0-d f32
+    ``rz`` in one launch of the ``cg_step`` chain kernel; returns
+    ``(x, r, p, rz, res2)`` as ``CsrOperator.cg_chain`` documents.  On the
+    card the state is copied once and then updated in place by the kernel.
+    ``q_out``, an (n,) f32 tensor on the card, receives the last step's
+    product q = A p (a check of the kernel's product)."""
     if iters < 1:
         raise ValueError(f"cg_chain needs iters >= 1, got {iters}")
     if x.is_cpu:
@@ -483,24 +485,22 @@ def cg_chain(op: CsrOperator, x, r, p, rz, iters: int):
     n = op.n_pad
     device, indptr, indices, vals = _check_operands(
         op, x=(x, n), r=(r, n), p=(p, n), diag=(op.diag, n),
-        inv_diag=(op.inv_diag, n))
+        inv_diag=(op.inv_diag, n), q_out=(q_out, n))
     if rz.device != x.device or rz.dtype != torch.float32 or rz.dim() != 0:
         raise ValueError(f"rz: {rz.dtype} {tuple(rz.shape)} on {rz.device}; "
                          f"the kernel takes a 0-d float32 tensor on {x.device}")
+    blocks = op.row_blocks
     lib = library("csr_kernels")
     x, r, p = x.clone(), r.clone(), p.clone()
-    q = torch.empty_like(x)
-    # slot 0 = rz on entry; step j: p.q in 2j+1, r.z in 2j+2; r.r last
+    q = torch.empty_like(x) if q_out is None else q_out
+    # step j: p.q in slot 2j+1, r.z in 2j+2; r.r in the last slot
     scal = torch.zeros(2 * iters + 2, dtype=torch.float64, device=x.device)
-    scal[0] = rz
     out = torch.empty(2, dtype=torch.float32, device=x.device)
-    stream = stream_of(x)
-    # the same operands for every step; only the step index changes
-    args = (device, n, indptr, indices, vals,
-            *map(ptr, (op.diag, op.inv_diag, x, r, p, q, scal)))
-    for j in range(iters):
-        LAUNCHES["cg_step"] += 1
-        rc = lib.slt_cg_step(*args, j, iters, int(j == iters - 1), ptr(out),
-                             stream)
-        raise_on(rc, "cg_step", lib)
+    LAUNCHES["cg_step"] += 1
+    STEPS["cg_step"] += iters
+    rc = lib.slt_cg_chain(
+        device, n, blocks.numel() - 1, blocks.data_ptr(), indptr, indices,
+        vals, *map(ptr, (op.diag, op.inv_diag, x, r, p, q, scal, rz)), iters,
+        ptr(out), stream_of(x))
+    raise_on(rc, "cg_step", lib)
     return x, r, p, out[0], out[1]

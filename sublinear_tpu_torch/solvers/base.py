@@ -127,6 +127,17 @@ def driver_mode_of(options: SolverOptions) -> str:
     return "residual"
 
 
+def repeat_steps(step: Callable, n: int) -> Callable:
+    """Compose ``n`` single steps into one block."""
+
+    def block(state):
+        for _ in range(n):
+            state = step(state)
+        return state
+
+    return block
+
+
 def dd_error_bounds(matrix: Matrix, residual_norm: float):
     """Deterministic solution-error bound for strictly DD matrices via the
     Varah bound ||A^-1||_inf <= 1/alpha, alpha = min_i(|a_ii| - sum|a_ij|):

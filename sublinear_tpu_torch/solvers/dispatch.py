@@ -1,11 +1,12 @@
 """Top-level ``solve()``: validation, DD gating and adaptive method choice, as
 in ``sublinear_tpu/solvers/dispatch.py``.
 
-Of the solver family, the Neumann series, CG and BiCGSTAB are ported.
-``ADAPTIVE`` runs what ``select_method`` picks and, when a non-Krylov choice
-does not converge, polishes with CG (symmetric) or BiCGSTAB from its
-iterate, as the JAX package does.  Every other method raises
-``NotImplementedError`` naming the ROADMAP item that ports it.  The E001 gate
+Of the solver family, the Neumann series, CG, BiCGSTAB, Chebyshev and the
+three push directions are ported.  ``ADAPTIVE`` runs what ``select_method``
+picks and, when a non-Krylov choice does not converge, polishes with CG
+(symmetric) or BiCGSTAB from its iterate, as the JAX package does.  Every
+other method raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.  The E001 gate
 runs first, exactly as in the JAX package, so error codes match for every
 method.
 """
@@ -42,11 +43,7 @@ _ROADMAP_ITEM = {
     Method.JACOBI: "queue 1, item 5",
     Method.GAUSS_SEIDEL: "queue 1, item 5",
     Method.SOR: "queue 1, item 5",
-    Method.CHEBYSHEV: "queue 1, item 5",
-    Method.FORWARD_PUSH: "queue 1, item 6",
-    Method.BACKWARD_PUSH: "queue 1, item 6",
-    Method.BIDIRECTIONAL: "queue 1, item 6",
-    Method.RANDOM_WALK: "queue 1, item 6",
+    Method.RANDOM_WALK: "queue 1, item 4",
     Method.HYBRID: "queue 1, item 6",
     Method.BMSSP: "queue 1, item 6",
 }
@@ -161,6 +158,15 @@ def solve(
         if analyze(matrix, estimate_condition=False).is_symmetric:
             return _cg.solve_cg(matrix, b, options, raise_on_fail)
         return _cg.solve_bicgstab(matrix, b, options, raise_on_fail)
+    if m == Method.CHEBYSHEV:
+        from . import chebyshev as _cheb
+
+        return _cheb.solve_chebyshev(matrix, b, options, raise_on_fail)
+    if m in (Method.FORWARD_PUSH, Method.BACKWARD_PUSH, Method.BIDIRECTIONAL):
+        from . import push as _push
+
+        return _push.solve_push(matrix, b, options, direction=m.value,
+                                raise_on_fail=raise_on_fail)
     if m in _ROADMAP_ITEM:
         raise _not_ported(m)
     from ..errors import InvalidParametersError

@@ -177,7 +177,8 @@ def test_port_imports_no_jax():
     files = sorted(root.rglob("*.py"))
     assert len(files) > 10
     scripts = [root.parent / "chip_smoke.py",
-               root.parent / "sweep_sparse_kernels.py"]
+               root.parent / "sweep_sparse_kernels.py",
+               root.parent / "chain_times.py"]
     for path in files + scripts:
         tree = ast.parse(path.read_text(), filename=str(path))
         bad = [m for m in _imported_modules(tree) if _forbidden(m)]

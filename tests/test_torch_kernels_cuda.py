@@ -12,7 +12,8 @@ roundings, summed in another order), 1e-4 for the CG chain and for bf16x3
 (its bf16 split of t can round the other way).  Where the kernels promise
 the same order of arithmetic (csr_spmv against a one-column csr_spmm on
 short rows, a column of csr_spmm against the product of that column alone,
-two runs), the results must be equal bit for bit.
+two runs, the chains' products against csr_spmv), the results must be
+equal bit for bit.
 """
 import numpy as np
 import pytest
@@ -64,30 +65,81 @@ def test_csr_spmv(op, x, with_diag):
 
 @pytest.mark.parametrize("with_residual", [False, True, "norm"])
 def test_neumann_chain(op, x, with_residual):
-    before = K.LAUNCHES["neumann_step"]
+    """The chain kernel against its plain version: one launch per chain,
+    seven steps counted."""
+    before, steps = K.LAUNCHES["neumann_step"], K.STEPS["neumann_step"]
     got = K.neumann_chain(op, x, 7, with_residual)
-    assert K.LAUNCHES["neumann_step"] == before + 7
+    assert K.LAUNCHES["neumann_step"] == before + 1
+    assert K.STEPS["neumann_step"] == steps + 7
     want = K.neumann_chain_plain(op, x, 7, with_residual)
     for g, w in zip(got, want):
         _close(g, w)
 
 
-def test_cg_chain(op, x):
-    """The CG kernel's state against the plain chain, and its launch count
-    (one per CG step).  op is asymmetric, which the recurrence does not
-    mind; the tolerance is 1e-4 * max|plain|, as f32 CG steps amplify the
-    differences of summation order."""
-    r = x.clone()
-    z = op.inv_diag * r
-    rz = K.dot64(r, z)
-    before = K.LAUNCHES["cg_step"]
-    got = K.cg_chain(op, torch.zeros_like(x), r, z, rz, 6)
-    assert K.LAUNCHES["cg_step"] == before + 6
-    want = K.cg_chain_plain(op, torch.zeros_like(x), r, z, rz, 6)
-    torch.cuda.synchronize()
+def _cg_start(op, x):
+    z = op.inv_diag * x
+    return torch.zeros_like(x), x.clone(), z, K.dot64(x, z)
+
+
+def _close_cg(got, want):
+    """f32 CG steps amplify the differences of summation order: 1e-4 *
+    max|want|."""
     for g, w in zip(got, want):
         g, w = g.double().reshape(-1), w.double().reshape(-1)
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_cg_chain(op, x):
+    """The CG kernel's state against the plain chain, and its launch count
+    (one per chain, six steps counted).  op is asymmetric, which the
+    recurrence does not mind."""
+    before, steps = K.LAUNCHES["cg_step"], K.STEPS["cg_step"]
+    got = K.cg_chain(op, *_cg_start(op, x), 6)
+    assert K.LAUNCHES["cg_step"] == before + 1
+    assert K.STEPS["cg_step"] == steps + 6
+    want = K.cg_chain_plain(op, *_cg_start(op, x), 6)
+    torch.cuda.synchronize()
+    _close_cg(got, want)
+
+
+def _check_chain_products(op, x):
+    """Each step's product of both chains equals csr_spmv's bit for bit:
+    the Neumann step's y = R t_in (its res = -y on the last step) and the
+    CG step's q = R p + diag * p (q_out), after 1 and after 3 steps."""
+    for iters in (1, 3):
+        t_prev = x if iters == 1 else K.neumann_chain(op, x, iters - 1)[1]
+        acc, last, res = K.neumann_chain(op, x, iters, True)
+        y = K.csr_spmv(op, t_prev)
+        assert torch.equal(-res, y)
+        assert torch.equal(last, -(op.inv_diag * y))
+        state = _cg_start(op, x)
+        p_prev = (state[2] if iters == 1
+                  else K.cg_chain(op, *state, iters - 1)[2])
+        q = torch.empty_like(x)
+        K.cg_chain(op, *state, iters, q_out=q)
+        assert torch.equal(q, K.csr_spmv(op, p_prev, op.diag))
+
+
+def _check_continuation(op, x):
+    """A 5 + 5 chain against a 10-step one: the Neumann terms are the same
+    bits (the steps are deterministic) and the sums agree; the CG states
+    agree within 1e-4 (their f64 dots add block sums in no fixed order)."""
+    acc10, t10 = K.neumann_chain(op, x, 10)
+    acc5, t5 = K.neumann_chain(op, x, 5)
+    acc55, t55 = K.neumann_chain(op, t5, 5)
+    assert torch.equal(t55, t10)
+    _close(acc5 + (acc55 - t5), acc10)
+    state = _cg_start(op, x)
+    ten = K.cg_chain(op, *state, 10)
+    _close_cg(K.cg_chain(op, *K.cg_chain(op, *state, 5)[:4], 5), ten)
+
+
+def test_chain_products_are_csr_spmv(op, x):
+    _check_chain_products(op, x)
+
+
+def test_chains_continue(op, x):
+    _check_continuation(op, x)
 
 
 def test_wrapper_rejects_wrong_dtype(op, x):
@@ -366,6 +418,36 @@ def test_csr_spmv_shapes(card, case):
             assert not got.any()
         else:
             _close(got, want)
+
+
+def _with_diagonal(csr):
+    """csr plus a diagonal of 1.5 * |off-diagonal row sum| + 1 (strictly
+    diagonally dominant)."""
+    rows, cols, vals = csr.to_coo()
+    n = csr.shape[0]
+    d = np.arange(n)
+    diag = 1.5 * np.bincount(rows, weights=np.abs(vals), minlength=n) + 1.0
+    return CSR.from_coo(np.r_[rows, d], np.r_[cols, d], np.r_[vals, diag],
+                        (n, n))
+
+
+@pytest.mark.parametrize("case", sorted(SPMV_CASES))
+def test_chains_shapes(card, case):
+    """Both chains on csr_spmv's edge shapes, with a diagonal added: against
+    their plain versions (Neumann 1e-5, the 10-step CG chain 1e-4), their
+    products against csr_spmv bit for bit, and 5 + 5 steps against 10."""
+    op = K.pack_csr(_with_diagonal(_csr_from_lengths(SPMV_CASES[case])),
+                    device=card)
+    x = torch.as_tensor(np.random.default_rng(3).uniform(-1, 1, op.n_pad),
+                        dtype=torch.float32, device=card)
+    for wr in (False, True, "norm"):
+        got = K.neumann_chain(op, x, 12, wr)
+        for g, w in zip(got, K.neumann_chain_plain(op, x, 12, wr)):
+            _close(g, w)
+    _close_cg(K.cg_chain(op, *_cg_start(op, x), 10),
+              K.cg_chain_plain(op, *_cg_start(op, x), 10))
+    _check_chain_products(op, x)
+    _check_continuation(op, x)
 
 
 def test_operator_check_is_cached(card):
