@@ -47,8 +47,12 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
      route: dense_neumann_fused at n=768 and n=1536 with B in {1, 4} and a
      warm restart 8 then 8, dense_neumann_fused_bf16x3, dense_jacobi_fused
      and dense_power_fused (on a column-stochastic P^T of a seeded random
-     graph with dangling nodes, alpha 0.85) at n=1536, each with iters=8,
-     and the time per call of each in turns;
+     graph with dangling nodes, alpha 0.85) at n=1536, each with iters=8;
+     the two Neumann kernels with iters=0 at their path's n, and
+     dense_neumann_fused on the same recipe's matrix at n=3000 stored
+     dense (36 MB of A, more than the card's shared memory: rows read from
+     global memory inside the persistent kernel) with B in {1, 4}; and the
+     time per call of each at B=1 in turns;
  15. the dense fused path: solve_neumann_fused at n=768, epsilon 1e-6
      ("neumann-fused-highest"), at n=1536, epsilon 1e-3
      ("neumann-fused-bf16x3"), and at n=1536, epsilon 1e-6 (the fallback to
@@ -67,10 +71,12 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
  18. the small-batch path: solve_batch with 20 RHS at n=100k, which runs
      serialized Neumann chain solves (neumann_step, no csr_spmm);
  19. the figures of csr_spmv (phases 3 and 6) and csr_spmm (phase 16, f32)
-     with their device times, and the device times of the two chain
-     kernels at n=100k (neumann_step per step of phase 5's chain, cg_step
-     per step of phase 8's).  They come last because a torch.profiler
-     window slows the host-bound solves that follow it in the same process
+     with their device times, the device times of the two chain kernels at
+     n=100k (neumann_step per step of phase 5's chain, cg_step per step of
+     phase 8's), and the device time and device launches per call of the
+     four dense kernels at their timed shapes (raising unless each Neumann
+     call is one launch).  They come last because a torch.profiler window
+     slows the host-bound solves that follow it in the same process
      (BiCGSTAB, CG on the ELL route).
 
 Beside each kernel's time the script computes its bound (the least time the
@@ -119,6 +125,7 @@ N_BANDED = 1_000_000
 N_ELL, DENSITY_ELL = 12_000, 0.03
 DENSE_SIZES, DENSITY_DENSE = (768, 1536), 0.01
 DENSE_ITERS = 8         # solve_neumann_fused's block
+N_DENSE_GLOBAL = 3000   # A larger than the card's shared memory
 X3_RTOL = 1e-4          # bf16x3: the bf16 split of t may round the other way
 N_RHS = 128             # bench.py's batch row (bench_batch_point)
 N_RHS_CHAIN = 20        # solve_batch's serialized-chain path (<= 32 RHS)
@@ -350,16 +357,18 @@ def sparse_csr(torch, A, dev):
         device=dev)
 
 
-def device_ms(torch, fn, reps=DEVICE_REPS, kernel=None):
-    """Mean device ms per call of ``fn``: the own time of every kernel and
-    copy on the card under torch.profiler (only those whose name holds
-    ``kernel``, if given), over ``reps`` back-to-back warm calls; None when
-    the profiler saw no such device time.  The profiler now and then loses
+def device_profile(torch, fn, reps=DEVICE_REPS, kernel=None):
+    """(mean device ms per call, device launches per call) of ``fn``: the
+    own time of every kernel and copy on the card under torch.profiler
+    (only those whose name holds ``kernel``, or one of a tuple of names, if
+    given), over ``reps`` back-to-back warm calls; the ms are None when the
+    profiler saw no such device time.  The profiler now and then loses
     records of a window, so each kernel's time is its mean over the
     launches it recorded, times its launches per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -367,12 +376,20 @@ def device_ms(torch, fn, reps=DEVICE_REPS, kernel=None):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0) / e.count
-                   * max(1, round(e.count / reps))
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.count
-                   and (kernel is None or kernel in e.key))
-    return total_us / 1e3 if total_us > 0 else None
+    total_us, launches = 0.0, 0
+    for e in prof.key_averages():
+        if not (e.device_type == DeviceType.CUDA and e.count
+                and (names is None or any(k in e.key for k in names))):
+            continue
+        per_call = max(1, round(e.count / reps))
+        total_us += getattr(e, "self_device_time_total", 0) / e.count * per_call
+        launches += per_call
+    return (total_us / 1e3 if total_us > 0 else None), launches
+
+
+def device_ms(torch, fn, reps=DEVICE_REPS, kernel=None):
+    """Mean device ms per call of ``fn`` (``device_profile``'s first)."""
+    return device_profile(torch, fn, reps, kernel)[0]
 
 
 def fmt_ms(v) -> str:
@@ -490,6 +507,17 @@ def reset(*modules):
         for counts in (mod.LAUNCHES, getattr(mod, "STEPS", {})):
             for name in counts:
                 counts[name] = 0
+
+
+def dense_dd(torch, slt, n, dev):
+    """(A, diag, inv_diag) of the generator's seeded DD matrix
+    (random-sparse, density DENSITY_DENSE, seed SEED) stored dense, as f32
+    tensors; the columns (n, 1)."""
+    a = torch.as_tensor(slt.generate("random-sparse", n, seed=SEED,
+                                     density=DENSITY_DENSE).to_dense(),
+                        dtype=torch.float32, device=dev)
+    d = torch.diagonal(a).clone()[:, None]
+    return a, d, 1.0 / d
 
 
 def stochastic(torch, n, B, dev, seed=SEED):
@@ -859,54 +887,58 @@ def main() -> int:
             raise RuntimeError(f"n={n} routes to {dense[n]._op_kind()!r}, "
                                "not 'dense'")
     rng = np.random.default_rng(SEED)
+    dense_ops = {n: dense_dd(torch, slt, n, dev)
+                 for n in DENSE_SIZES + (N_DENSE_GLOBAL,)}
 
-    def dense_case(name, n, B):
+    def dense_case(name, n, B, iters=DENSE_ITERS):
         """(kernel call, plain call) of one dense kernel at (n, B)."""
         if name == "dense_power_fused":
             pt, v, dang = stochastic(torch, n, B, dev)
-            return (lambda: DF.dense_power_fused(pt, v, dang, 0.85,
-                                                 DENSE_ITERS),
+            return (lambda: DF.dense_power_fused(pt, v, dang, 0.85, iters),
                     lambda: DF.dense_power_fused_plain(pt, v, dang, 0.85,
-                                                       DENSE_ITERS))
-        dop = dense[n].op()
-        d, dinv = dop.diag[:, None], dop.inv_diag[:, None]
+                                                       iters))
+        a_d, d, dinv = dense_ops[n]
         b_d, x_d = (torch.as_tensor(s * rng.standard_normal((n, B)),
                                     dtype=torch.float32, device=dev)
                     for s in (1.0, 0.1))
         if name == "dense_neumann_fused_bf16x3":
-            ah, al = DF.split_bf16(dop.data)
+            ah, al = DF.split_bf16(a_d)
             return (lambda: DF.dense_neumann_fused_bf16x3(
-                        ah, al, d, dinv, b_d, x_d, DENSE_ITERS),
+                        ah, al, d, dinv, b_d, x_d, iters),
                     lambda: DF.dense_neumann_fused_bf16x3_plain(
-                        ah, al, d, dinv, b_d, x_d, DENSE_ITERS))
+                        ah, al, d, dinv, b_d, x_d, iters))
         fn, plain = getattr(DF, name), getattr(DF, name + "_plain")
-        return (lambda: fn(dop.data, d, dinv, b_d, x_d, DENSE_ITERS),
-                lambda: plain(dop.data, d, dinv, b_d, x_d, DENSE_ITERS))
+        return (lambda: fn(a_d, d, dinv, b_d, x_d, iters),
+                lambda: plain(a_d, d, dinv, b_d, x_d, iters))
 
     # the shape each kernel's time is reported at: the fused path's for
     # the two Neumann variants, the widest for the two no path runs
     timed = {"dense_neumann_fused": (768, 1),
              "dense_neumann_fused_bf16x3": (1536, 1),
              "dense_jacobi_fused": (1536, 1), "dense_power_fused": (1536, 1)}
-    cases = [("dense_neumann_fused", n, B) for n in DENSE_SIZES
-             for B in (1, 4)]
-    cases += [(name, 1536, B) for name in ("dense_neumann_fused_bf16x3",
-                                           "dense_jacobi_fused",
-                                           "dense_power_fused")
-              for B in (1, 4)]
-    for name, n, B in cases:
-        kern, plain = dense_case(name, n, B)
+    cases = [("dense_neumann_fused", n, B, DENSE_ITERS)
+             for n in DENSE_SIZES + (N_DENSE_GLOBAL,) for B in (1, 4)]
+    cases += [(name, 1536, B, DENSE_ITERS)
+              for name in ("dense_neumann_fused_bf16x3", "dense_jacobi_fused",
+                           "dense_power_fused") for B in (1, 4)]
+    # iters=0: x0 + D^-1 (b - A x0), no grid barrier
+    cases += [(name, n, 1, 0) for name, (n, _) in timed.items()
+              if name.startswith("dense_neumann")]
+    dense_fns = {}  # the calls phase 19 profiles, at the timed shapes
+    for name, n, B, iters in cases:
+        kern, plain = dense_case(name, n, B, iters)
         got, want = kern(), plain()
         torch.cuda.synchronize()
         rel = rel_err(got, want)
+        label = f"n={n} B={B} iters={iters}"
         errs.setdefault(name, []).append(
-            (f"n={n} B={B}", rel, float((got - want).abs().max())))
+            (label, rel, float((got - want).abs().max())))
         limit = X3_RTOL if name.endswith("bf16x3") else KERNEL_RTOL
-        print(f"  {name} n={n} B={B}: max rel err {rel:.3e}", flush=True)
+        print(f"  {name} {label}: max rel err {rel:.3e}", flush=True)
         if not rel <= limit:
-            raise RuntimeError(f"{name} n={n} B={B} disagrees with its plain "
+            raise RuntimeError(f"{name} {label} disagrees with its plain "
                                f"version: {rel} > {limit}")
-        if B != 1:
+        if B != 1 or iters != DENSE_ITERS:
             continue
         k_ms, p_ms, turns = in_turns(torch, kern, plain, 50)
         b_ms, b_by = dense_bound(name, n, B, DENSE_ITERS)
@@ -916,6 +948,7 @@ def main() -> int:
         if (n, B) == timed[name]:
             ms[name], plain_ms[name] = k_ms, p_ms
             bounds[name] = (b_ms, b_by)
+            dense_fns[name] = kern
     for n in DENSE_SIZES:  # warm restart: 8 then 8 against plain 8 then 8
         dop = dense[n].op()
         d, dinv = dop.diag[:, None], dop.inv_diag[:, None]
@@ -1125,8 +1158,8 @@ def main() -> int:
           f"{rels.max():.3e} launches={counts}; warm ms per batch "
           f"{' '.join(f'{t:.4f}' for t in warm)}", flush=True)
 
-    phase("19 device times of the sparse products and chains "
-          "(torch.profiler)")
+    phase("19 device times of the sparse products, the chains and the dense "
+          "kernels (torch.profiler)")
     dev_ms = {name: [fig.report(torch) for fig in figs][0]
               for name, figs in late.items()}
     for name, fn, steps, kern in (
@@ -1142,6 +1175,24 @@ def main() -> int:
               f"{fmt_ms(None if whole is None else whole / steps)} ms (the "
               f"whole call, its copies and fills included); bound "
               f"{b_ms:.5f} ms ({b_by})", flush=True)
+    for name, names in (
+            ("dense_neumann_fused", "dense_neumann_kernel"),
+            ("dense_neumann_fused_bf16x3", "dense_neumann_kernel"),
+            ("dense_jacobi_fused", "dense_iter_kernel"),
+            ("dense_power_fused", ("dense_iter_kernel", "mass_kernel"))):
+        dev_ms[name], per_call = device_profile(torch, dense_fns[name],
+                                                kernel=names)
+        _, every = device_profile(torch, dense_fns[name])
+        n, B = timed[name]
+        b_ms, b_by = bounds[name]
+        print(f"  {name} at n={n} B={B} iters={DENSE_ITERS}: device "
+              f"{fmt_ms(dev_ms[name])} ms per call, {per_call} device "
+              f"launches per call ({every} of any kernel); per call "
+              f"{ms[name]:.5f} ms; bound {b_ms:.5f} ms ({b_by})", flush=True)
+        if name.startswith("dense_neumann") and not per_call == every == 1:
+            raise RuntimeError(f"{name}: {every} device launches per call, "
+                               f"{per_call} of dense_neumann_kernel; the "
+                               f"persistent kernel is one")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

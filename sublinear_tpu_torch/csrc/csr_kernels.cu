@@ -63,8 +63,8 @@
 // keep L1 hits that loads through L2 alone (__ldcg) lose, and the chains
 // stream the CSR evict-first (__ldcs) so that at n = 1M the 80 MB stream
 // does not push the gathered vector out of L1.  Device time per step on an
-// H100 at 700 W (chain_times.py; __ldcg gathers / plain gathers / plain
-// gathers and an evict-first CSR): Neumann 0.0138 / 0.0122-0.0131 /
+// H100 at 700 W (times.py --family chains; __ldcg gathers / plain gathers /
+// plain gathers and an evict-first CSR): Neumann 0.0138 / 0.0122-0.0131 /
 // 0.0131 ms at n = 100k and 0.1066 / 0.1100-0.1107 / 0.1045 ms at n = 1M;
 // CG 0.0244 / 0.0177 / 0.0172-0.0176 ms and 0.1174 / 0.1128-0.1131 /
 // 0.1066 ms.

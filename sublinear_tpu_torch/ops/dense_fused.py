@@ -17,9 +17,11 @@ Kernels: ``csrc/dense_kernels.cu`` (one kernel family, built by
 ``ops/_kernels.py``).  Each function has a ``*_plain`` PyTorch twin beside
 it.  A CPU tensor takes the twin; a CUDA tensor launches the kernel or
 raises.  ``LAUNCHES`` counts kernel calls: one per call of a wrapper that
-reaches the card, which issues the block's ``iters + 1`` (Neumann), ``iters``
-(Jacobi) or ``2 * iters`` (power) device launches, as one ``pallas_call``
-ran the block on the TPU.
+reaches the card, which issues one cooperative device launch (the two
+Neumann variants: A's rows held in shared memory for all ``iters + 1``
+products, a grid barrier between each two), ``iters`` (Jacobi) or
+``2 * iters`` (power) device launches, as one ``pallas_call`` ran the block
+on the TPU.
 
 ``FUSED_MAX_NPAD`` and ``FUSED_HIGHEST_MAX_NPAD`` are the TPU's VMEM limits,
 kept so that both packages choose the same path for a matrix.  They apply
@@ -148,10 +150,11 @@ def _neumann(name, a, a_lo, diag, inv_diag, b, x0, iters):
     lib = library("dense_kernels")
     x = torch.empty_like(b)
     t = torch.empty((2, n, B), dtype=f32, device=dev)
+    t0 = t.data_ptr()  # the two term buffers, without building views
     LAUNCHES[name] += 1
     rc = lib.slt_dense_neumann(
         dev.index or 0, n, B, ptr(a), ptr(a_lo), ptr(diag), ptr(inv_diag),
-        ptr(b), ptr(x0), int(iters), ptr(x), ptr(t[0]), ptr(t[1]),
+        ptr(b), ptr(x0), int(iters), ptr(x), t0, t0 + 4 * n * B,
         stream_of(b))
     raise_on(rc, name, lib)
     return x

@@ -104,6 +104,29 @@ def test_dense_neumann_fused_bf16x3(n, B, iters):
     _close(got, want, RTOL_X3)
 
 
+@pytest.mark.parametrize("kernel,n", [("dense_neumann_fused", 768),
+                                      ("dense_neumann_fused_bf16x3", 1536)])
+def test_dense_neumann_at_path_width(kernel, n):
+    """Each Neumann variant at the width the fused path gives it
+    (solve_neumann_fused: n=768 takes the f32 kernel, n=1536 the bf16x3
+    one), B=1, T=8; no padding in either package at these n."""
+    jop, pop, (b, x0), (jb, jx0) = _inputs(n, 1, seed=4)
+    assert jop.n_pad == pop.n_pad == n
+    (d, dinv), (jd, jdinv) = _diag_cols(jop, pop)
+    if kernel == "dense_neumann_fused":
+        got = df.dense_neumann_fused(pop.data, d, dinv, b, x0, iters=BLOCK)
+        want = pk.dense_neumann_fused(jop.data, jd, jdinv, jb, jx0,
+                                      iters=BLOCK)
+        _close(got, want, RTOL)
+        return
+    ah, al = df.split_bf16(pop.data)
+    jah, jal = pk.split_bf16(jop.data)
+    got = df.dense_neumann_fused_bf16x3(ah, al, d, dinv, b, x0, iters=BLOCK)
+    want = pk.dense_neumann_fused_bf16x3(jah, jal, jd, jdinv, jb, jx0,
+                                         iters=BLOCK)
+    _close(got, want, RTOL_X3)
+
+
 @pytest.mark.parametrize("n,B,iters", CASES, ids=CASE_IDS)
 def test_dense_jacobi_fused(n, B, iters):
     jop, pop, (b, x0), (jb, jx0) = _inputs(n, B, seed=3)

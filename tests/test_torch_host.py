@@ -178,7 +178,7 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     scripts = [root.parent / "chip_smoke.py",
                root.parent / "sweep_sparse_kernels.py",
-               root.parent / "chain_times.py"]
+               root.parent / "times.py"]
     for path in files + scripts:
         tree = ast.parse(path.read_text(), filename=str(path))
         bad = [m for m in _imported_modules(tree) if _forbidden(m)]

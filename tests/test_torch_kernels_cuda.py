@@ -15,6 +15,8 @@ short rows, a column of csr_spmm against the product of that column alone,
 two runs, the chains' products against csr_spmv), the results must be
 equal bit for bit.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -243,6 +245,175 @@ def test_dense_kernel(card, kernel, n, B):
     g, w = got.double(), want.double()
     rtol = 1e-4 if kernel.endswith("bf16x3") else RTOL
     assert float((g - w).abs().max()) <= rtol * float(w.abs().max())
+
+
+@functools.lru_cache(maxsize=None)
+def _dd_dense(n, full=False):
+    """A seeded DD matrix as a dense f32 tensor on the card, with its diag
+    and inv_diag columns and its bf16 halves: the generator's (random-sparse,
+    density 0.01, at least one off-diagonal entry per row on average;
+    [[1.5]] at n = 1), or with ``full`` every entry set: uniform(-1, 1) off
+    the diagonal, 1.2 times the row's absolute sum on it (about 460 at
+    n = 768)."""
+    if full:
+        a = np.random.default_rng(n).uniform(-1.0, 1.0, (n, n))
+        np.fill_diagonal(a, 0.0)
+        np.fill_diagonal(a, 1.2 * np.abs(a).sum(axis=1))
+    elif n == 1:
+        a = np.array([[1.5]])
+    else:
+        a = slp.generate("random-sparse", n, seed=7,
+                         density=max(0.01, 1.0 / n)).to_dense()
+    a = torch.as_tensor(a, dtype=torch.float32, device=torch.device("cuda"))
+    d = torch.diagonal(a).clone()[:, None]
+    return a, d, 1.0 / d, DF.split_bf16(a)
+
+
+def _blocks(n, B, seed=3):
+    """Seeded (n, B) blocks b and x0 (x0 a tenth of b's scale)."""
+    rng = np.random.default_rng(seed)
+    b, x0 = (s * torch.as_tensor(rng.standard_normal((n, B)),
+                                 dtype=torch.float32, device="cuda")
+             for s in (1.0, 0.1))
+    return b, x0
+
+
+def _neumann_case(kernel, n, B, iters, x0=None, seed=3, full=False):
+    """(kernel call, plain call) of dense_neumann_fused or its bf16x3
+    variant on _dd_dense(n, full) with _blocks(n, B, seed) (x0 unless
+    given)."""
+    a, d, dinv, (ah, al) = _dd_dense(n, full)
+    b, x0_seeded = _blocks(n, B, seed)
+    if x0 is None:
+        x0 = x0_seeded
+    if kernel == "dense_neumann_fused_bf16x3":
+        return (lambda x=x0, t=iters: DF.dense_neumann_fused_bf16x3(
+                    ah, al, d, dinv, b, x, t),
+                lambda x=x0, t=iters: DF.dense_neumann_fused_bf16x3_plain(
+                    ah, al, d, dinv, b, x, t))
+    return (lambda x=x0, t=iters: DF.dense_neumann_fused(a, d, dinv, b, x, t),
+            lambda x=x0, t=iters: DF.dense_neumann_fused_plain(
+                a, d, dinv, b, x, t))
+
+
+NEUMANN_KERNELS = ("dense_neumann_fused", "dense_neumann_fused_bf16x3")
+# n = 3000: 36 MB of A (f32, or the two bf16 halves), more than the card's
+# 30 MB of shared memory, so each block reads its last rows from global
+# memory every iteration
+NEUMANN_SHAPES = [(k, n) for k in NEUMANN_KERNELS
+                  for n in (1, 301, 768, 1536, 3000)]
+
+
+@pytest.mark.parametrize("iters", [0, 1, 8, 60])
+@pytest.mark.parametrize("B", [1, 3, 4, 8, 9])
+@pytest.mark.parametrize("kernel,n", NEUMANN_SHAPES)
+def test_dense_neumann_persistent(card, kernel, n, B, iters):
+    """The persistent Neumann kernels against their plain versions at every
+    column tiling (B = 9: two tiles of 8), with no barrier (iters = 0) and
+    many; n = 1 and 301 load their slabs without bulk copies.  One kernel
+    call per wrapper call, and two runs equal bit for bit (no atomics)."""
+    kern, plain = _neumann_case(kernel, n, B, iters)
+    before = DF.LAUNCHES[kernel]
+    got = kern()
+    assert DF.LAUNCHES[kernel] == before + 1
+    want = plain()
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n, B)
+    g, w = got.double(), want.double()
+    rtol = 1e-4 if kernel.endswith("bf16x3") else RTOL
+    assert float((g - w).abs().max()) <= rtol * float(w.abs().max())
+    assert torch.equal(got, kern())
+
+
+# the kernel's error against the f64 series, at most this many times the
+# plain version's
+WITNESS_FACTOR = 4.0
+
+
+@pytest.mark.parametrize("iters", [0, 1, 8])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("kernel,n", [(k, n) for k in NEUMANN_KERNELS
+                                      for n in (768, 1536)])
+def test_dense_neumann_f64_witness(card, kernel, n, B, iters):
+    """On the fully dense _dd_dense(n, full=True) the f32 sums cancel: the
+    diagonal (about 460 at n = 768) dominates each product A t, the term is
+    what is left once d t is taken off, over d, and x = x0 + term is an
+    order of magnitude smaller than x0.  So kernel and plain may differ by
+    more than 1e-5 of the result.  Both are held to the same series in f64
+    on the same f32 inputs (for bf16x3 on A = a_hi + a_lo, exact in f64):
+    the kernel's error is at most WITNESS_FACTOR times the plain version's,
+    so the difference is f32 rounding, not the kernel.  Run with -s to
+    print the errors."""
+    a, d, dinv, (ah, al) = _dd_dense(n, True)
+    b, x0 = _blocks(n, B)
+    kern, plain = _neumann_case(kernel, n, B, iters, full=True)
+    got, want = kern().double(), plain().double()
+    a64 = (a.double() if kernel == "dense_neumann_fused"
+           else ah.double() + al.double())
+    exact = DF.dense_neumann_fused_plain(a64, d.double(), dinv.double(),
+                                         b.double(), x0.double(), iters)
+    err_k = float((got - exact).abs().max())
+    err_p = float((want - exact).abs().max())
+    print(f"f64 witness {kernel} n={n} B={B} iters={iters}: max |x| "
+          f"{float(exact.abs().max()):.4e}, |kernel - f64| {err_k:.4e}, "
+          f"|plain - f64| {err_p:.4e}, |kernel - plain| "
+          f"{float((got - want).abs().max()):.4e}")
+    assert err_k <= WITNESS_FACTOR * err_p
+
+
+@pytest.mark.parametrize("iters", [0, 8])
+@pytest.mark.parametrize("kernel", NEUMANN_KERNELS)
+def test_dense_neumann_wide_block(card, kernel, iters):
+    """B = 700 at n = 768: 88 column tiles, and a block's rows of x (6 x 700
+    floats) past the 16 KB the kernel keeps in shared memory, so x stays in
+    global memory."""
+    kern, plain = _neumann_case(kernel, 768, 700, iters)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    g, w = got.double(), want.double()
+    rtol = 1e-4 if kernel.endswith("bf16x3") else RTOL
+    assert float((g - w).abs().max()) <= rtol * float(w.abs().max())
+
+
+@pytest.mark.parametrize("kernel", NEUMANN_KERNELS)
+def test_dense_neumann_continuation(card, kernel):
+    """8 then 8 iterations against the plain 8 then 8, 16 against the plain
+    16, and 8 then 8 against 16.  A restart recomputes the residual, so
+    8 + 8 leaves the error M^18 e0 where 16 leaves M^17 e0 (M = I - D^-1 A);
+    on _dd_dense's matrix (M's spectral radius about 0.3 at n = 768) both
+    are the solution to f32 precision."""
+    n, B = 768, 2
+    rtol = 1e-4 if kernel.endswith("bf16x3") else RTOL
+    kern, plain = _neumann_case(kernel, n, B, 8)
+    x88 = kern(kern())
+    x16 = kern(t=16)
+    for got, want in ((x88, plain(plain())), (x16, plain(t=16)),
+                      (x88, x16)):
+        g, w = got.double(), want.double()
+        assert float((g - w).abs().max()) <= rtol * float(w.abs().max())
+
+
+@pytest.mark.parametrize("kernel", NEUMANN_KERNELS)
+def test_dense_neumann_one_device_launch(card, kernel):
+    """A call at the fused path's shape is one device launch of the
+    persistent kernel (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 768 if kernel == "dense_neumann_fused" else 1536
+    kern, _ = _neumann_case(kernel, n, 1, 8)
+    kern()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            kern()
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.count}
+    launched = {k: c for k, c in counts.items() if "dense_" in k}
+    assert len(launched) == 1, counts
+    ((name, count),) = launched.items()
+    assert "dense_neumann_kernel" in name and count == 4, counts
 
 
 def test_dense_neumann_continues_and_rejects_cpu_mix(card):
