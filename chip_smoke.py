@@ -44,15 +44,15 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
      n=100k matrix ("csr" route); with iterations and warm times;
  14. the four dense kernels of ops/dense_fused.py against their plain
      versions, on random-sparse (density 0.01, seed 7) matrices of the dense
-     route: dense_neumann_fused at n=768 and n=1536 with B in {1, 4} and a
-     warm restart 8 then 8, dense_neumann_fused_bf16x3, dense_jacobi_fused
-     and dense_power_fused (on a column-stochastic P^T of a seeded random
-     graph with dangling nodes, alpha 0.85) at n=1536, each with iters=8;
-     the two Neumann kernels with iters=0 at their path's n, and
-     dense_neumann_fused on the same recipe's matrix at n=3000 stored
-     dense (36 MB of A, more than the card's shared memory: rows read from
-     global memory inside the persistent kernel) with B in {1, 4}; and the
-     time per call of each at B=1 in turns;
+     route: dense_neumann_fused, dense_jacobi_fused and dense_power_fused
+     (on a column-stochastic P^T of a seeded random graph with dangling
+     nodes, alpha 0.85) at n=768, n=1536 and n=3000 (the matrix stored
+     dense: 36 MB of A, more than the card's shared memory, so rows are
+     read from global memory inside the persistent kernel) with B in
+     {1, 4}, and dense_neumann_fused_bf16x3 at n=1536, each with iters=8;
+     a warm restart of dense_neumann_fused 8 then 8; the two Neumann
+     kernels with iters=0 at their path's n, Jacobi and power with iters=0
+     at each n; and the time per call of each at B=1 in turns;
  15. the dense fused path: solve_neumann_fused at n=768, epsilon 1e-6
      ("neumann-fused-highest"), at n=1536, epsilon 1e-3
      ("neumann-fused-bf16x3"), and at n=1536, epsilon 1e-6 (the fallback to
@@ -74,10 +74,10 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
      with their device times, the device times of the two chain kernels at
      n=100k (neumann_step per step of phase 5's chain, cg_step per step of
      phase 8's), and the device time and device launches per call of the
-     four dense kernels at their timed shapes (raising unless each Neumann
-     call is one launch).  They come last because a torch.profiler window
-     slows the host-bound solves that follow it in the same process
-     (BiCGSTAB, CG on the ELL route).
+     four dense kernels at their timed shapes (raising unless each call is
+     one launch of the persistent dense_fused_kernel).  They come last
+     because a torch.profiler window slows the host-bound solves that
+     follow it in the same process (BiCGSTAB, CG on the ELL route).
 
 Beside each kernel's time the script computes its bound (the least time the
 card could take: the bytes the function must move at 3.35 TB/s, or its
@@ -916,14 +916,19 @@ def main() -> int:
     timed = {"dense_neumann_fused": (768, 1),
              "dense_neumann_fused_bf16x3": (1536, 1),
              "dense_jacobi_fused": (1536, 1), "dense_power_fused": (1536, 1)}
-    cases = [("dense_neumann_fused", n, B, DENSE_ITERS)
+    cases = [(name, n, B, DENSE_ITERS)
+             for name in ("dense_neumann_fused", "dense_jacobi_fused",
+                          "dense_power_fused")
              for n in DENSE_SIZES + (N_DENSE_GLOBAL,) for B in (1, 4)]
-    cases += [(name, 1536, B, DENSE_ITERS)
-              for name in ("dense_neumann_fused_bf16x3", "dense_jacobi_fused",
-                           "dense_power_fused") for B in (1, 4)]
-    # iters=0: x0 + D^-1 (b - A x0), no grid barrier
+    cases += [("dense_neumann_fused_bf16x3", 1536, B, DENSE_ITERS)
+              for B in (1, 4)]
+    # iters=0: Neumann x0 + D^-1 (b - A x0), no grid barrier; Jacobi and
+    # power return x0 or v without a launch
     cases += [(name, n, 1, 0) for name, (n, _) in timed.items()
               if name.startswith("dense_neumann")]
+    cases += [(name, n, 1, 0)
+              for name in ("dense_jacobi_fused", "dense_power_fused")
+              for n in DENSE_SIZES + (N_DENSE_GLOBAL,)]
     dense_fns = {}  # the calls phase 19 profiles, at the timed shapes
     for name, n, B, iters in cases:
         kern, plain = dense_case(name, n, B, iters)
@@ -1175,13 +1180,9 @@ def main() -> int:
               f"{fmt_ms(None if whole is None else whole / steps)} ms (the "
               f"whole call, its copies and fills included); bound "
               f"{b_ms:.5f} ms ({b_by})", flush=True)
-    for name, names in (
-            ("dense_neumann_fused", "dense_neumann_kernel"),
-            ("dense_neumann_fused_bf16x3", "dense_neumann_kernel"),
-            ("dense_jacobi_fused", "dense_iter_kernel"),
-            ("dense_power_fused", ("dense_iter_kernel", "mass_kernel"))):
+    for name in timed:
         dev_ms[name], per_call = device_profile(torch, dense_fns[name],
-                                                kernel=names)
+                                                kernel="dense_fused_kernel")
         _, every = device_profile(torch, dense_fns[name])
         n, B = timed[name]
         b_ms, b_by = bounds[name]
@@ -1189,9 +1190,9 @@ def main() -> int:
               f"{fmt_ms(dev_ms[name])} ms per call, {per_call} device "
               f"launches per call ({every} of any kernel); per call "
               f"{ms[name]:.5f} ms; bound {b_ms:.5f} ms ({b_by})", flush=True)
-        if name.startswith("dense_neumann") and not per_call == every == 1:
+        if not per_call == every == 1:
             raise RuntimeError(f"{name}: {every} device launches per call, "
-                               f"{per_call} of dense_neumann_kernel; the "
+                               f"{per_call} of dense_fused_kernel; the "
                                f"persistent kernel is one")
 
     kernels = []

@@ -23,77 +23,91 @@
 // so f32 FMAs on the converted halves carry out the TPU's arithmetic.  The
 // epilogues use __fmul_rn / __fadd_rn, so no FMA contraction changes a
 // rounding: the plain PyTorch versions differ from these kernels only in the
-// order of the product's sums.
+// order of the product's sums (and, for kPower, of mass's).
 //
-// The two Neumann kernels (#6, #7): one persistent cooperative launch per
-// call, dense_neumann_kernel, as the TPU ran one pallas_call with A in VMEM.
-// The grid is about one block per SM (132 on an H100, capped by n); block k
-// owns R = ceil(n / grid) consecutive rows and loads their slab of A (f32,
-// or the two bf16 halves: 4 bytes per entry either way) into dynamic shared
-// memory once, with one cp.async.bulk copy per row completing on that row's
-// mbarrier (plain loads where rows are not 16-byte aligned), so a warp
-// starts the init product on its row while later rows arrive.  n = 768
-// gives R = 6 over 128 blocks (18.4 KB each), n = 1536 R = 12 over 128
-// blocks (73.7 KB).  Rows past the block's shared-memory
+// One kernel template runs all four, dense_fused_kernel<CB, MODE>, with one
+// persistent cooperative launch per call, as the TPU ran one pallas_call
+// with A in VMEM.  The grid is about one block per SM (132 on an H100,
+// capped by n); block k owns R = ceil(n / grid) consecutive rows and loads
+// their slab of A (f32, or the two bf16 halves: 4 bytes per entry either
+// way) into dynamic shared memory once, with one cp.async.bulk copy per row
+// completing on that row's mbarrier (plain loads where rows are not 16-byte
+// aligned), so a warp starts the first product on its row while later rows
+// arrive.  n = 768 gives R = 6 over 128 blocks (18.4 KB each), n = 1536
+// R = 12 over 128 blocks (73.7 KB).  Rows past the block's shared-memory
 // budget (f32 above n ~ 2.6k) are read from global memory every iteration
-// in the same kernel.  inv_d and diag of the block's rows go to shared
-// memory once, and so does x of its rows where they fit (16 KB; else x
-// stays in global memory, read and written only by the thread that owns the
-// entry).  Each of the T + 1 products then:
-//   1. stages t (x0 for the init product) into shared memory, in chunks of
-//      up to 48 KB, each thread with kStageBatch loads in flight, with
-//      ld.global.cg: other blocks wrote t since the last barrier, so neither
-//      __ldg nor L1 may serve it; the block's own rows of t are kept aside
-//      for the epilogue;
+// in the same kernel.  The rows' per-row and per-entry constants go to
+// shared memory once: inv_d and diag (not kPower), and where the block's
+// rows of an (n, B) block fit in 16 KB, the Neumann x, the Jacobi b, or the
+// power v and dang (else those stay in global memory, x read and written
+// only by the thread that owns the entry).  Each product then:
+//   1. stages t (x0, or v, for the first product) into shared memory, in
+//      chunks of up to 48 KB, each thread with kStageBatch loads in flight,
+//      with ld.global.cg: other blocks wrote t since the last barrier, so
+//      neither __ldg nor L1 may serve it; the block's own rows of t are kept
+//      aside for the epilogue;
 //   2. forms each of the block's rows' sums from the slab, one warp per row
 //      (16 warps: a block's rows in one round up to n ~ 2.1k), a lane
 //      reading four entries as one 16- or 8-byte shared load, reduced by a
 //      fixed butterfly: no atomics, so two runs are equal bit for bit;
 //   3. runs the epilogue for the block's rows from shared memory alone,
-//      writing term into the other of two ping-pong buffers (and x into
-//      global memory after the last product);
+//      writing its result into the other of two ping-pong buffers;
 //   4. meets the other blocks at grid.sync().
-// One barrier per iteration is enough with two term buffers: iteration j
-// reads buffer (j - 1) & 1 and writes buffer j & 1; a block that has passed
+// One barrier per iteration is enough with two buffers: iteration j reads
+// buffer (j - 1) & 1 and writes buffer j & 1; a block that has passed
 // barrier j and writes buffer (j + 1) & 1 = (j - 1) & 1 in iteration j + 1
 // knows that every block finished reading it, in iteration j, before
-// arriving at barrier j.  So a call is T grid barriers and one launch;
-// iters = 0 has no barrier.  Columns are tiled CB = 1, 4 or 8 at a time
+// arriving at barrier j.  Neumann: T + 1 products (the init product and T
+// steps), T barriers, the term ping-ponged and x written after the last.
+// Jacobi and power: T products and T - 1 barriers, x_j ping-ponged with no
+// accumulator; the host makes the output one of the two buffers, the one
+// the last product writes.  Columns are tiled CB = 1, 4 or 8 at a time
 // inside the block.
+//
+// kPower's mass without a second barrier.  Iteration j needs mass(x_{j-1})
+// before its epilogue, and x_{j-1} is complete only at barrier j - 1.  So
+// in its epilogue each block also sums dang * x_j over its rows and all its
+// column tiles, each thread in a fixed order in f64, then the block in a
+// fixed order (each warp's butterfly, then thread 0 adds the warps' sums
+// in warp order), and writes this partial to slot [j & 1][blockIdx.x] of a
+// small f64 array.  After the barrier every block reads all gridDim.x
+// partials of that slot (ld.global.cg, as t is staged): lane l adds
+// partials l, l + 32, ... in index order in f64, then a fixed f64
+// butterfly; every block does the same operations on the same values, so
+// all get the same mass, with no atomics, and two runs are equal bit for
+// bit.  The block's last warp does the read after its rows of the first
+// chunk (up to n ~ 2.1k it has none), while the others form their sums.
+// Two slots are enough for the reason two buffers are: slot j & 1 is
+// written in iteration j and read in iteration j + 1, and a block writing
+// it again in iteration j + 2 has passed barrier j + 1, which every block
+// reached only after its reads of iteration j + 1.  mass(v) of iteration
+// 0 needs no barrier: each block sums dang * v over all n * B entries
+// itself, in one fixed order, while its slab arrives.
 //
 // What bounds them on an H100.  The bytes: A once (2.36 MB at n = 768,
 // 9.44 MB at n = 1536), 0.7 and 2.8 us at 3.35 TB/s; the products
-// (2 n^2 B (T + 1) flops) take less.  But at these sizes a call is a chain
-// of latencies: per iteration an L2 round trip to stage t, the product and
-// its syncs, the stores of term, and a grid barrier.  Measured on an H100
-// at 700 W (times.py --family dense, device time, B = 1): a call without
+// (2 n^2 B flops each) take less.  But at these sizes a call is a chain of
+// latencies: per iteration an L2 round trip to stage t, the product and its
+// syncs, the stores, and a grid barrier.  Measured on an H100 at 700 W
+// (times.py --family dense, device time, B = 1): a Neumann call without
 // iterations (launch, slab load, init product) takes 3.6 us at n = 768
 // (f32) and 6.2 us at n = 1536 (bf16x3); each iteration adds 2.5 and
-// 3.3 us.  So the barrier's round, not the bytes, is the floor.
+// 3.3 us.  At n = 1536, B = 1 a Jacobi call of one product takes 5.0 us
+// and each further iteration 2.9 us; power 6.2 and 3.2 us (its mass(v)
+// and the read of the partials).  So the barrier's round, not the bytes,
+// is the floor, for Jacobi and power as for Neumann: all four stay far
+// under half of their byte bound (8 iterations at n = 1536: 25 us and
+// 29 us against 2.8 us of bytes).
 //
 // The bf16x3 product runs on f32 FMAs at every B.  A version on bf16
 // mma.sync.m16n8k16 tiles (the MXU's arithmetic) was slower at B = 1, where
 // 7 of the n8 tile's 8 columns are padding, and faster only from B = 4,
 // which the fused solver never passes (PERF.md, open questions).
 //
-// Jacobi and power (#8, #9), not yet redesigned: one launch of
-// dense_iter_kernel per iteration on one stream, the launch boundary being
-// the grid barrier.  A block of kWarps warps takes kWarps rows, one warp per
-// row; a lane reads four consecutive entries of its row per step.  The
-// block stages the current vector in shared memory in chunks of kSmem / CB
-// rows of CB columns, column-major, so that a lane reads its four entries of
-// one column as one float4 without bank conflicts; columns are tiled
-// CB = 1, 4 or 8 at a time over gridDim.y.  A row count that is not a
-// multiple of 4 (or an unaligned A) takes scalar loads.  A is re-read from
-// L2 every iteration.  kPower's mass: a one-block launch before each power
-// launch sums dang * x in one fixed order (f64 per thread, then a fixed
-// tree) into a float slot of its own for that iteration, so every block of
-// the power launch reads the same value and the sum does not change from
-// run to run.
-//
-// Interface: plain C, loaded with ctypes.  Each entry point issues all the
-// launches of one call on the given stream, checks the launch's error, does
-// not synchronise, allocates nothing, and returns 0 or the CUDA error.
+// Interface: plain C, loaded with ctypes.  Each entry point issues the one
+// cooperative launch of a call on the given stream, checks the launch's
+// error, does not synchronise, allocates nothing, and returns 0 or the CUDA
+// error.
 
 #include <algorithm>
 #include <cstddef>
@@ -110,10 +124,6 @@ namespace cgr = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 8;              // rows per block, one warp each
-constexpr int kBlock = kWarps * 32;
-constexpr int kSmem = 4096;            // dense_iter_kernel: floats per array
-constexpr int kMassBlock = 1024;
 constexpr int kMaxResident = 64;       // slab rows of a block, one mbarrier
                                        // each
 constexpr int kBarBytes = kMaxResident * 8;
@@ -167,156 +177,20 @@ __device__ __forceinline__ void fma4(float& acc, const float4 a,
   acc = fmaf(a.w, t.w, acc);
 }
 
-// ------------------------------------------------- Jacobi and power (#8, #9)
-
-enum Mode { kJacobi, kPower };
-
-struct Args {
-  int n, B;
-  const float* a;                // A or P^T (n, n), row-major
-  const float* diag;             // (n)
-  const float* inv_d;            // (n)
-  const float* b;                // (n, B); v for kPower
-  const float* t_in;             // (n, B): the product's input
-  float* t_out;                  // (n, B): the next x
-  const float* mass;             // kPower: this iteration's slot
-  float one_minus_alpha, alpha;  // kPower
-};
-
-// One iteration: rows blockIdx.x * kWarps + warp, columns
-// blockIdx.y * CB + [0, CB).
-template <int CB, int MODE>
-__global__ void __launch_bounds__(kBlock) dense_iter_kernel(Args p,
-                                                            int vec) {
-  constexpr int KC = kSmem / CB;  // rows of t per staged chunk
-  __shared__ __align__(16) float ts[kSmem];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = p.n, B = p.B;
-  const int row = blockIdx.x * kWarps + warp;
-  const int col0 = blockIdx.y * CB;
-
-  float acc[CB];
-#pragma unroll
-  for (int c = 0; c < CB; ++c) acc[c] = 0.0f;
-
-  for (int kbase = 0; kbase < n; kbase += KC) {
-    const int len = min(KC, n - kbase);
-    __syncthreads();  // the previous chunk has been read
-    for (int i = threadIdx.x; i < CB * KC; i += kBlock) {
-      const int k = i / CB, c = i % CB;
-      float v = 0.0f;
-      if (k < len && col0 + c < B) {
-        v = p.t_in[(size_t)(kbase + k) * B + col0 + c];
-      }
-      ts[c * KC + k] = v;
-    }
-    __syncthreads();
-    if (row >= n) continue;
-    const size_t off = (size_t)row * n + kbase;
-    if (vec) {
-      // len is a multiple of 4 here (n % 4 == 0, KC % 4 == 0)
-      for (int k = lane * 4; k < len; k += 128) {
-        const float4 a = load4(p.a + off + k);
-#pragma unroll
-        for (int c = 0; c < CB; ++c) {
-          fma4(acc[c], a, *reinterpret_cast<const float4*>(&ts[c * KC + k]));
-        }
-      }
-    } else {
-      for (int k = lane; k < len; k += 32) {
-        const float a = load1(p.a + off + k);
-#pragma unroll
-        for (int c = 0; c < CB; ++c) acc[c] = fmaf(a, ts[c * KC + k], acc[c]);
-      }
-    }
-  }
-  if (row >= n) return;  // no barrier follows
-
-  // butterfly sums: every lane ends with the same totals
-#pragma unroll
-  for (int c = 0; c < CB; ++c) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], o);
-    }
-  }
-
-  // lane c finishes column col0 + c
-#pragma unroll
-  for (int c = 0; c < CB; ++c) {
-    if (lane != c || col0 + c >= B) continue;
-    const float prod = acc[c];
-    const size_t i = (size_t)row * B + col0 + c;
-    if constexpr (MODE == kJacobi) {
-      const float xi = p.t_in[i];
-      p.t_out[i] = __fmul_rn(
-          p.inv_d[row],
-          __fsub_rn(p.b[i], __fsub_rn(prod, __fmul_rn(p.diag[row], xi))));
-    } else {
-      const float vi = p.b[i];
-      p.t_out[i] = __fadd_rn(
-          __fmul_rn(p.one_minus_alpha, vi),
-          __fmul_rn(p.alpha, __fadd_rn(prod, __fmul_rn(*p.mass, vi))));
-    }
-  }
-}
-
-// *mass = sum(dang * x) over `total` entries, in one fixed order.
-__global__ void __launch_bounds__(kMassBlock) mass_kernel(
-    long long total, const float* __restrict__ dang,
-    const float* __restrict__ x, float* __restrict__ mass) {
-  __shared__ double part[kMassBlock];
-  double s = 0.0;
-  for (long long i = threadIdx.x; i < total; i += kMassBlock) {
-    s += (double)dang[i] * (double)x[i];
-  }
-  part[threadIdx.x] = s;
-  __syncthreads();
-  for (int w = kMassBlock / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *mass = (float)part[0];
-}
-
-template <int MODE>
-cudaError_t launch_iter(const Args& p, int vec, cudaStream_t s) {
-  const unsigned rows = (unsigned)((p.n + kWarps - 1) / kWarps);
-  if (p.B == 1) {
-    dense_iter_kernel<1, MODE><<<dim3(rows, 1), kBlock, 0, s>>>(p, vec);
-  } else if (p.B <= 4) {
-    dense_iter_kernel<4, MODE><<<dim3(rows, 1), kBlock, 0, s>>>(p, vec);
-  } else {
-    dense_iter_kernel<8, MODE>
-        <<<dim3(rows, (unsigned)((p.B + 7) / 8)), kBlock, 0, s>>>(p, vec);
-  }
-  return cudaGetLastError();
-}
-
 bool aligned16(const void* q) {
   return q == nullptr || reinterpret_cast<uintptr_t>(q) % 16 == 0;
 }
 
-Args base_args(int n, int B, const float* diag, const float* inv_d,
-               const float* b) {
-  Args p{};
-  p.n = n;
-  p.B = B;
-  p.diag = diag;
-  p.inv_d = inv_d;
-  p.b = b;
-  return p;
-}
+// The epilogue of a call: #6, #7, #8, #9.
+enum Mode { kNeumann, kNeumann3, kJacobi, kPower };
 
-// -------------------------------------------------------- Neumann (#6, #7)
-
-constexpr int kNeuWarps = 16;  // a block's rows (up to 16 in one round)
-constexpr int kNeuBlock = kNeuWarps * 32;
+constexpr int kWarps = 16;  // a block's rows (up to 16 in one round)
+constexpr int kBlock = kWarps * 32;
 constexpr int kStageBatch = 4;  // staged loads each thread has in flight
-constexpr size_t kXsBytes = 16384;  // x kept in shared memory up to this
+constexpr size_t kXsBytes = 16384;  // an (n, B) block's rows kept in shared
+                                    // memory up to this
 
-struct NeuArgs {
+struct Args {
   int n, B, iters;
   int rows;      // rows per block (the last block may have fewer)
   int resident;  // rows of a block held in shared memory, at most
@@ -324,17 +198,30 @@ struct NeuArgs {
   int kc;        // rows of t per staged chunk, a multiple of 4
   int bulk;      // the slab arrives by cp.async.bulk (else plain loads)
   int vec;       // rows read from global take 16- or 8-byte loads
-  int xs;        // the block's rows of x live in shared memory (else global)
-  const float* a;          // f32 A (n, n), row-major
+  int xs;        // the block's rows of x (Neumann), b (Jacobi) or v and
+                 // dang (power) live in shared memory (else global)
+  const float* a;          // f32 A (n, n), row-major; P^T for kPower
   const uint16_t* a_hi;    // bf16x3: the two bf16 halves of A
   const uint16_t* a_lo;
-  const float* diag;       // (n)
-  const float* inv_d;      // (n)
-  const float* b;          // (n, B)
-  const float* x0;         // (n, B)
-  float* x;                // (n, B): the result
-  float* t0;               // (n, B) x 2: the ping-ponged term
-  float* t1;
+  // kPower has no diagonal: its two operands take those slots, so the
+  // struct grows by its two scalars only.  (Grown by 24 bytes, the
+  // parameter changed nvcc's code for the Neumann kernels, and #7 ran
+  // about 1.5% slower; grown by 8 their code is what it was before Jacobi
+  // and power joined them.)
+  union {
+    const float* diag;     // (n): Neumann and Jacobi
+    const float* dang;     // kPower: (n, B)
+  };
+  union {
+    const float* inv_d;    // (n): Neumann and Jacobi
+    double* part;          // kPower: 2 x gridDim.x partials of mass
+  };
+  const float* b;          // (n, B); v for kPower
+  const float* x0;         // (n, B): t of the first product (v for kPower)
+  float* x;                // (n, B): Neumann's result
+  float* t0;               // (n, B) x 2: the ping-pong buffers (Jacobi and
+  float* t1;               // power: one of them is the result)
+  float one_minus_alpha, alpha;  // kPower
 };
 
 __host__ __device__ constexpr size_t round16(size_t v) {
@@ -345,16 +232,19 @@ __host__ __device__ constexpr size_t round16(size_t v) {
 // kMaxResident mbarriers: the staged chunk of t (CB columns of kc floats:
 // t, or th then tl in CB more); the rows' partial sums (rows x NP x CB, NP
 // = 3 for bf16x3, else 1); the rows' own entries of t (rows x CB); inv_d
-// and diag of the rows; x of the rows (rows x B, if p.xs); the slab
-// (resident x ldn floats, or resident x ldn bf16 of a_hi, then those of
-// a_lo), 4 bytes an entry either way.
+// and diag of the rows; the rows of x (Neumann), b (Jacobi) or v then dang
+// (power), rows x B each, if p.xs; kPower's block sums (kWarps doubles) and
+// mass; the slab (resident x ldn floats, or resident x ldn bf16 of a_hi,
+// then those of a_lo), 4 bytes an entry either way.
 struct Regions {
-  size_t ts, part, own, cst, xs, slab;
+  size_t ts, part, own, cst, xs, red, slab;
 };
 
-template <int CB, bool X3>
-__host__ __device__ Regions regions(const NeuArgs& p) {
+template <int CB, int MODE>
+__host__ __device__ Regions regions(const Args& p) {
+  constexpr bool X3 = MODE == kNeumann3;
   constexpr int NT = X3 ? 2 : 1, NP = X3 ? 3 : 1;
+  constexpr int NX = MODE == kPower ? 2 : 1;
   Regions g;
   size_t o = kBarBytes;
   g.ts = o;
@@ -366,7 +256,9 @@ __host__ __device__ Regions regions(const NeuArgs& p) {
   g.cst = o;
   o += round16((size_t)p.rows * 2 * 4);
   g.xs = o;
-  o += p.xs ? round16((size_t)p.rows * p.B * 4) : 0;
+  o += p.xs ? round16((size_t)NX * p.rows * p.B * 4) : 0;
+  g.red = o;
+  o += MODE == kPower ? round16(kWarps * 8 + 4) : 0;
   g.slab = o;
   return g;
 }
@@ -412,11 +304,14 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar) {
 
 // Load the block's `res` slab rows (from row0): one bulk copy per row (two
 // for bf16x3) on the row's mbarrier, or plain loads.  Entries [n, ldn) of a
-// row are zero.  Also inv_d and diag of the block's `here` rows into cst.
-template <bool X3>
-__device__ void load_slab(const NeuArgs& p, unsigned char* slab,
-                          uint64_t* bars, float* cst, int row0, int here,
-                          int res) {
+// row are zero.  Also inv_d and diag of the block's `here` rows into cst
+// (not kPower), and b (Jacobi) or v and dang (power) of those rows into xs
+// where they fit (p.xs).
+template <int MODE>
+__device__ void load_slab(const Args& p, unsigned char* slab,
+                          uint64_t* bars, float* cst, float* xs, int row0,
+                          int here, int res) {
+  constexpr bool X3 = MODE == kNeumann3;
   const int n = p.n, ldn = p.ldn;
   float* af = reinterpret_cast<float*>(slab);
   uint16_t* hs = reinterpret_cast<uint16_t*>(slab);
@@ -438,7 +333,7 @@ __device__ void load_slab(const NeuArgs& p, unsigned char* slab,
       }
     }
     const int pad = ldn - n;  // bytes no copy writes
-    for (int i = threadIdx.x; i < res * pad; i += kNeuBlock) {
+    for (int i = threadIdx.x; i < res * pad; i += kBlock) {
       const size_t e = (size_t)(i / pad) * ldn + n + i % pad;
       if constexpr (X3) {
         hs[e] = 0;
@@ -448,7 +343,7 @@ __device__ void load_slab(const NeuArgs& p, unsigned char* slab,
       }
     }
   } else {
-    for (int i = threadIdx.x; i < res * ldn; i += kNeuBlock) {
+    for (int i = threadIdx.x; i < res * ldn; i += kBlock) {
       const int r = i / ldn, k = i % ldn;
       const size_t g = (size_t)(row0 + r) * n + k;
       if constexpr (X3) {
@@ -459,9 +354,22 @@ __device__ void load_slab(const NeuArgs& p, unsigned char* slab,
       }
     }
   }
-  for (int r = threadIdx.x; r < here; r += kNeuBlock) {
-    cst[r] = __ldg(p.inv_d + row0 + r);
-    cst[p.rows + r] = __ldg(p.diag + row0 + r);
+  if constexpr (MODE != kPower) {
+    for (int r = threadIdx.x; r < here; r += kBlock) {
+      cst[r] = __ldg(p.inv_d + row0 + r);
+      cst[p.rows + r] = __ldg(p.diag + row0 + r);
+    }
+  }
+  if constexpr (MODE == kJacobi || MODE == kPower) {
+    if (p.xs) {
+      const size_t e0 = (size_t)row0 * p.B;
+      for (int i = threadIdx.x; i < here * p.B; i += kBlock) {
+        xs[i] = __ldg(p.b + e0 + i);
+        if constexpr (MODE == kPower) {
+          xs[p.rows * p.B + i] = __ldg(p.dang + e0 + i);
+        }
+      }
+    }
   }
   __syncthreads();  // the barriers' init, cst (and the plain loads) seen
 }
@@ -472,22 +380,22 @@ __device__ void load_slab(const NeuArgs& p, unsigned char* slab,
 // go to own (rows x CB), for the epilogue.  Each thread has kStageBatch
 // loads in flight.
 template <int CB, bool X3>
-__device__ void stage(const NeuArgs& p, const float* t, int col0, int kbase,
+__device__ void stage(const Args& p, const float* t, int col0, int kbase,
                       int len, int lenp, float* ts, float* own, int row0,
                       int here) {
   const int B = p.B, kc = p.kc, total = CB * lenp;
-  for (int i0 = threadIdx.x; i0 < total; i0 += kNeuBlock * kStageBatch) {
+  for (int i0 = threadIdx.x; i0 < total; i0 += kBlock * kStageBatch) {
     float v[kStageBatch];
 #pragma unroll
     for (int u = 0; u < kStageBatch; ++u) {
-      const int i = i0 + u * kNeuBlock, k = i / CB, c = i % CB;
+      const int i = i0 + u * kBlock, k = i / CB, c = i % CB;
       v[u] = i < total && k < len && col0 + c < B
                  ? __ldcg(t + (size_t)(kbase + k) * B + col0 + c)
                  : 0.0f;
     }
 #pragma unroll
     for (int u = 0; u < kStageBatch; ++u) {
-      const int i = i0 + u * kNeuBlock, k = i / CB, c = i % CB;
+      const int i = i0 + u * kBlock, k = i / CB, c = i % CB;
       if (i >= total) break;
       if constexpr (X3) {
         const float hi = bf16_round(v[u]);
@@ -541,7 +449,7 @@ __device__ __forceinline__ void fma_step1(float (&acc)[X3 ? 3 : 1][CB],
 // One warp's sums of one row over the staged chunk: from the slab (row r <
 // res) or from global memory.
 template <int CB, bool X3>
-__device__ __forceinline__ void row_sums(const NeuArgs& p, const float* af,
+__device__ __forceinline__ void row_sums(const Args& p, const float* af,
                                          const uint16_t* hs,
                                          const uint16_t* ls, const float* ts,
                                          int r, int res, int grow, int kbase,
@@ -612,55 +520,109 @@ __device__ __forceinline__ void store_sums(float (&acc)[NP][CB], float* part,
   }
 }
 
-// The epilogue of the block's rows for columns [col0, col0 + CB): term
-// into t_out; x in shared memory (p.xs) or global memory, into p.x on the
-// last product.
-template <int CB, bool X3>
-__device__ void epilogue(const NeuArgs& p, const float* part,
-                         const float* own, const float* cst, float* xs,
-                         int row0, int here, int col0, float* t_out,
-                         bool init, bool last) {
+__device__ __forceinline__ double warp_sum(double s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// The block's sum of each thread's s, in a fixed order: each warp's
+// butterfly, then the warps' sums in warp order.  Thread 0 gets the total;
+// every thread must call it.
+__device__ double block_sum(double s, double* red) {
+  s = warp_sum(s);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = s;
+  __syncthreads();
+  double total = 0.0;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kWarps; ++w) total += red[w];
+  }
+  return total;
+}
+
+// kPower: *mass = the sum of the gridDim.x partials of `slot` that the
+// blocks wrote before the last barrier; called by one whole warp.
+__device__ void read_mass(const Args& p, int slot, float* mass) {
+  const int lane = threadIdx.x & 31;
+  const double* q = p.part + (size_t)slot * gridDim.x;
+  double s = 0.0;
+  for (int k = lane; k < (int)gridDim.x; k += 32) s += __ldcg(q + k);
+  s = warp_sum(s);
+  if (lane == 0) *mass = (float)s;
+}
+
+// The epilogue of the block's rows for columns [col0, col0 + CB), into
+// t_out.  Neumann: term into t_out; x in shared memory (p.xs) or global
+// memory, into p.x on the last product.  Jacobi and power: the next x into
+// t_out; kPower adds dang * x' to msum (not after the last product).
+template <int CB, int MODE>
+__device__ void epilogue(const Args& p, const float* part, const float* own,
+                         const float* cst, float* xs, int row0, int here,
+                         int col0, float* t_out, bool init, bool last,
+                         float mass, double& msum) {
+  constexpr bool X3 = MODE == kNeumann3;
   constexpr int NP = X3 ? 3 : 1;
-  for (int i = threadIdx.x; i < here * CB; i += kNeuBlock) {
+  for (int i = threadIdx.x; i < here * CB; i += kBlock) {
     const int r = i / CB, c = i % CB, col = col0 + c;
     if (col >= p.B) continue;
     const float* s = part + r * NP * CB + c;
     float prod = s[0];
     if constexpr (X3) prod = __fadd_rn(__fadd_rn(s[0], s[CB]), s[2 * CB]);
     const size_t e = (size_t)(row0 + r) * p.B + col;
-    float* xe = p.xs ? xs + r * p.B + col : p.x + e;
-    float term, x;
-    if (init) {
-      term = __fmul_rn(cst[r], __fsub_rn(__ldg(p.b + e), prod));
-      x = __fadd_rn(__ldg(p.x0 + e), term);
+    if constexpr (MODE == kJacobi) {
+      const float bi = p.xs ? xs[r * p.B + col] : __ldg(p.b + e);
+      t_out[e] = __fmul_rn(
+          cst[r], __fsub_rn(bi, __fsub_rn(prod, __fmul_rn(cst[p.rows + r],
+                                                          own[r * CB + c]))));
+    } else if constexpr (MODE == kPower) {
+      const float vi = p.xs ? xs[r * p.B + col] : __ldg(p.b + e);
+      const float xn = __fadd_rn(
+          __fmul_rn(p.one_minus_alpha, vi),
+          __fmul_rn(p.alpha, __fadd_rn(prod, __fmul_rn(mass, vi))));
+      t_out[e] = xn;
+      if (!last) {
+        const float di =
+            p.xs ? xs[(p.rows + r) * p.B + col] : __ldg(p.dang + e);
+        msum += (double)di * (double)xn;
+      }
     } else {
-      term = __fmul_rn(-cst[r], __fsub_rn(prod, __fmul_rn(cst[p.rows + r],
-                                                          own[r * CB + c])));
-      x = __fadd_rn(*xe, term);
-    }
-    t_out[e] = term;
-    if (last) {
-      p.x[e] = x;
-    } else {
-      *xe = x;
+      float* xe = p.xs ? xs + r * p.B + col : p.x + e;
+      float term, x;
+      if (init) {
+        term = __fmul_rn(cst[r], __fsub_rn(__ldg(p.b + e), prod));
+        x = __fadd_rn(__ldg(p.x0 + e), term);
+      } else {
+        term = __fmul_rn(-cst[r], __fsub_rn(prod, __fmul_rn(cst[p.rows + r],
+                                                            own[r * CB + c])));
+        x = __fadd_rn(*xe, term);
+      }
+      t_out[e] = term;
+      if (last) {
+        p.x[e] = x;
+      } else {
+        *xe = x;
+      }
     }
   }
 }
 
-// The whole call: the init product and p.iters steps, a grid barrier
-// between each two (see the note at the top).
-template <int CB, bool X3>
-__global__ void __launch_bounds__(kNeuBlock, 1)
-    dense_neumann_kernel(NeuArgs p) {
+// The whole call: the products j = 0..last, a grid barrier between each
+// two (see the note at the top).
+template <int CB, int MODE>
+__global__ void __launch_bounds__(kBlock, 1) dense_fused_kernel(Args p) {
+  constexpr bool X3 = MODE == kNeumann3;
+  constexpr bool NEU = MODE == kNeumann || X3;
   constexpr int NP = X3 ? 3 : 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Regions g = regions<CB, X3>(p);
+  const Regions g = regions<CB, MODE>(p);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   float* ts = reinterpret_cast<float*>(smem + g.ts);
   float* part = reinterpret_cast<float*>(smem + g.part);
   float* own = reinterpret_cast<float*>(smem + g.own);
   float* cst = reinterpret_cast<float*>(smem + g.cst);
   float* xs = reinterpret_cast<float*>(smem + g.xs);
+  double* red = reinterpret_cast<double*>(smem + g.red);  // kPower
+  float* mass = reinterpret_cast<float*>(red + kWarps);   // kPower
   unsigned char* slab = smem + g.slab;
   const float* af = reinterpret_cast<const float*>(slab);
   const uint16_t* hs = reinterpret_cast<const uint16_t*>(slab);
@@ -670,13 +632,25 @@ __global__ void __launch_bounds__(kNeuBlock, 1)
   const int row0 = blockIdx.x * p.rows;
   const int here = min(p.rows, p.n - row0);
   const int res = min(here, p.resident);
-  load_slab<X3>(p, slab, bars, cst, row0, here, res);
+  load_slab<MODE>(p, slab, bars, cst, xs, row0, here, res);
+  if constexpr (MODE == kPower) {
+    // mass(v), the same in every block, while the slab arrives
+    double s = 0.0;
+    const size_t total = (size_t)p.n * p.B;
+    for (size_t i = threadIdx.x; i < total; i += kBlock) {
+      s += (double)__ldg(p.dang + i) * (double)__ldg(p.x0 + i);
+    }
+    s = block_sum(s, red);
+    if (threadIdx.x == 0) *mass = (float)s;
+  }
 
   cgr::grid_group grid = cgr::this_grid();
-  for (int j = 0; j <= p.iters; ++j) {
+  const int last = NEU ? p.iters : p.iters - 1;
+  for (int j = 0; j <= last; ++j) {
     const bool init = j == 0;
     const float* t_in = init ? p.x0 : ((j & 1) ? p.t0 : p.t1);
     float* t_out = (j & 1) ? p.t1 : p.t0;
+    double msum = 0.0;  // kPower: this thread's dang * x' in a fixed order
     for (int col0 = 0; col0 < p.B; col0 += CB) {
       for (int kbase = 0; kbase < p.n; kbase += p.kc) {
         const int len = min(p.kc, p.n - kbase);
@@ -685,19 +659,33 @@ __global__ void __launch_bounds__(kNeuBlock, 1)
         __syncthreads();  // the previous chunk has been read
         stage<CB, X3>(p, t_in, col0, kbase, len, lenp, ts, own, row0, here);
         __syncthreads();
-        for (int r = warp; r < here; r += kNeuWarps) {
+        for (int r = warp; r < here; r += kWarps) {
           float acc[NP][CB] = {};
           if (init && p.bulk && r < res) bar_wait(bars + r);
           row_sums<CB, X3>(p, af, hs, ls, ts, r, res, row0 + r, kbase, len,
                            lenp, acc);
           store_sums<CB, NP>(acc, part, r, first);
         }
+        if constexpr (MODE == kPower) {
+          // the last warp (idle here while here < kWarps) reads mass(x_{j-1})
+          if (!init && col0 == 0 && first && warp == kWarps - 1) {
+            read_mass(p, (j - 1) & 1, mass);
+          }
+        }
       }
-      __syncthreads();  // every row's sums are in part
-      epilogue<CB, X3>(p, part, own, cst, xs, row0, here, col0, t_out, init,
-                       j == p.iters);
+      __syncthreads();  // every row's sums are in part (and mass is read)
+      epilogue<CB, MODE>(p, part, own, cst, xs, row0, here, col0, t_out,
+                         init, j == last, MODE == kPower ? *mass : 0.0f,
+                         msum);
     }
-    if (j < p.iters) grid.sync();  // t_out complete before it is staged
+    if (j < last) {
+      if constexpr (MODE == kPower) {
+        msum = block_sum(msum, red);
+        const size_t slot = (size_t)(j & 1) * gridDim.x;
+        if (threadIdx.x == 0) p.part[slot + blockIdx.x] = msum;
+      }
+      grid.sync();  // t_out (and the partials) complete before they are read
+    }
   }
 }
 
@@ -713,13 +701,14 @@ std::map<std::pair<int, const void*>, DeviceInfo> g_info;
 // (device, kernel, dynamic shared bytes) -> blocks resident on the card
 std::map<std::tuple<int, const void*, size_t>, int> g_capacity;
 
-// Plan and issue one cooperative launch of dense_neumann_kernel<CB, X3>:
+// Plan and issue one cooperative launch of dense_fused_kernel<CB, MODE>:
 // grid about one block per SM, the rows that fit the block's budget
 // resident, the grid checked against the occupancy calculator at the call's
 // dynamic shared-memory size.
-template <int CB, bool X3>
-cudaError_t launch_neumann(NeuArgs p, int device, cudaStream_t s) {
-  auto kernel = dense_neumann_kernel<CB, X3>;
+template <int CB, int MODE>
+cudaError_t launch_fused(Args p, int device, cudaStream_t s) {
+  constexpr bool X3 = MODE == kNeumann3;
+  auto kernel = dense_fused_kernel<CB, MODE>;
   const void* key = reinterpret_cast<const void*>(kernel);
   cudaError_t err;
   std::lock_guard<std::mutex> lock(g_mutex);
@@ -755,7 +744,7 @@ cudaError_t launch_neumann(NeuArgs p, int device, cudaStream_t s) {
   const int cap = kVecFloats / ((X3 ? 2 : 1) * CB) / 4 * 4;
   p.kc = std::min(p.ldn, cap);
   p.xs = (size_t)p.rows * p.B * 4 <= kXsBytes;
-  const size_t fixed = regions<CB, X3>(p).slab;
+  const size_t fixed = regions<CB, MODE>(p).slab;
   if (fixed > info.budget) return cudaErrorInvalidValue;
   const size_t row_bytes = 4 * (size_t)p.ldn;  // f32, or two bf16
   p.resident = (int)std::min<size_t>(
@@ -766,22 +755,31 @@ cudaError_t launch_neumann(NeuArgs p, int device, cudaStream_t s) {
   if (cap_it == g_capacity.end()) {
     int per_sm = 0;
     if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, kNeuBlock, smem)) != cudaSuccess)
+             &per_sm, kernel, kBlock, smem)) != cudaSuccess)
       return err;
     cap_it = g_capacity.emplace(std::make_tuple(device, key, smem),
                                 per_sm * info.sms).first;
   }
   if (cap_it->second < grid) return cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&p};
-  return cudaLaunchCooperativeKernel(key, grid, kNeuBlock, args, smem, s);
+  return cudaLaunchCooperativeKernel(key, grid, kBlock, args, smem, s);
 }
 
-template <bool X3>
-cudaError_t launch_neumann_cols(const NeuArgs& p, int device,
-                                cudaStream_t s) {
-  if (p.B == 1) return launch_neumann<1, X3>(p, device, s);
-  if (p.B <= 4) return launch_neumann<4, X3>(p, device, s);
-  return launch_neumann<8, X3>(p, device, s);
+template <int MODE>
+cudaError_t launch_cols(const Args& p, int device, cudaStream_t s) {
+  if (p.B == 1) return launch_fused<1, MODE>(p, device, s);
+  if (p.B <= 4) return launch_fused<4, MODE>(p, device, s);
+  return launch_fused<8, MODE>(p, device, s);
+}
+
+// Jacobi and power: the ping-pong buffers of a call of `iters` products,
+// the last of which writes buffer (iters - 1) & 1: that one is x.
+void result_buffers(Args& p, int iters, float* x, float* t) {
+  float* bufs[2];
+  bufs[(iters - 1) & 1] = x;
+  bufs[iters & 1] = t;
+  p.t0 = bufs[0];
+  p.t1 = bufs[1];
 }
 
 }  // namespace
@@ -800,7 +798,7 @@ int slt_dense_neumann(int device, int n, int B, const void* a,
   if (err != cudaSuccess) return (int)err;
   if (n < 1 || B < 1 || iters < 0) return (int)cudaErrorInvalidValue;
   const bool x3 = a_lo != nullptr;
-  NeuArgs p{};
+  Args p{};
   p.n = n;
   p.B = B;
   p.iters = iters;
@@ -818,64 +816,64 @@ int slt_dense_neumann(int device, int n, int B, const void* a,
     const bool al = aligned16(a) && aligned16(a_lo);
     p.bulk = n % 8 == 0 && al;
     p.vec = n % 4 == 0 && al;
-    err = launch_neumann_cols<true>(p, device, s);
+    err = launch_cols<kNeumann3>(p, device, s);
   } else {
     p.a = static_cast<const float*>(a);
     p.bulk = p.vec = n % 4 == 0 && aligned16(a);
-    err = launch_neumann_cols<false>(p, device, s);
+    err = launch_cols<kNeumann>(p, device, s);
   }
   return (int)err;
 }
 
-// One call of dense_jacobi_fused: iters >= 1 launches; iteration j reads x0
-// (j = 0) or its predecessor's buffer and writes x1 (j even) or x2 (j odd).
+// One call of dense_jacobi_fused (iters >= 1): one cooperative launch of
+// iters sweeps from x0.  b, x0: (n, B); diag, inv_d: (n); x receives the
+// result; t (n, B) is scratch.
 int slt_dense_jacobi(int device, int n, int B, const float* a,
                      const float* diag, const float* inv_d, const float* b,
-                     const float* x0, int iters, float* x1, float* x2,
+                     const float* x0, int iters, float* x, float* t,
                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  Args p = base_args(n, B, diag, inv_d, b);
+  if (n < 1 || B < 1 || iters < 1) return (int)cudaErrorInvalidValue;
+  Args p{};
+  p.n = n;
+  p.B = B;
+  p.iters = iters;
   p.a = a;
-  const int vec = n % 4 == 0 && aligned16(a);
-  float* bufs[2] = {x1, x2};
-  for (int j = 0; j < iters; ++j) {
-    p.t_in = j == 0 ? x0 : bufs[(j - 1) & 1];
-    p.t_out = bufs[j & 1];
-    err = launch_iter<kJacobi>(p, vec, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  p.diag = diag;
+  p.inv_d = inv_d;
+  p.b = b;
+  p.x0 = x0;
+  result_buffers(p, iters, x, t);
+  p.bulk = p.vec = n % 4 == 0 && aligned16(a);
+  return (int)launch_cols<kJacobi>(p, device, (cudaStream_t)stream);
 }
 
-// One call of dense_power_fused: 2 * iters launches (iters >= 1), starting
-// from x = v; buffers as in slt_dense_jacobi; mass holds iters floats of
-// scratch, one slot per iteration.
+// One call of dense_power_fused (iters >= 1): one cooperative launch of
+// iters power steps from x = v.  v, dang: (n, B); x receives the result;
+// t (n, B) is scratch, and part 2 * n doubles (the grid has at most n
+// blocks) of scratch for the partials of mass.
 int slt_dense_power(int device, int n, int B, const float* pt,
                     const float* v, const float* dang, float one_minus_alpha,
-                    float alpha, int iters, float* x1, float* x2, float* mass,
+                    float alpha, int iters, float* x, float* t, double* part,
                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  Args p = base_args(n, B, nullptr, nullptr, v);
+  if (n < 1 || B < 1 || iters < 1) return (int)cudaErrorInvalidValue;
+  Args p{};
+  p.n = n;
+  p.B = B;
+  p.iters = iters;
   p.a = pt;
+  p.b = v;
+  p.dang = dang;
+  p.x0 = v;
+  p.part = part;
   p.one_minus_alpha = one_minus_alpha;
   p.alpha = alpha;
-  const int vec = n % 4 == 0 && aligned16(pt);
-  float* bufs[2] = {x1, x2};
-  for (int j = 0; j < iters; ++j) {
-    p.t_in = j == 0 ? v : bufs[(j - 1) & 1];
-    p.t_out = bufs[j & 1];
-    p.mass = mass + j;
-    mass_kernel<<<1, kMassBlock, 0, s>>>((long long)n * B, dang, p.t_in,
-                                         mass + j);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    err = launch_iter<kPower>(p, vec, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  result_buffers(p, iters, x, t);
+  p.bulk = p.vec = n % 4 == 0 && aligned16(pt);
+  return (int)launch_cols<kPower>(p, device, (cudaStream_t)stream);
 }
 
 const char* slt_error_string(int code) {

@@ -13,15 +13,16 @@ signatures and shapes: ``a`` (and ``pt``) is ``(n, n)``, ``diag`` and
   ``dense_jacobi_fused``           Jacobi sweeps
   ``dense_power_fused``            PageRank power steps with P^T
 
-Kernels: ``csrc/dense_kernels.cu`` (one kernel family, built by
-``ops/_kernels.py``).  Each function has a ``*_plain`` PyTorch twin beside
-it.  A CPU tensor takes the twin; a CUDA tensor launches the kernel or
-raises.  ``LAUNCHES`` counts kernel calls: one per call of a wrapper that
-reaches the card, which issues one cooperative device launch (the two
-Neumann variants: A's rows held in shared memory for all ``iters + 1``
-products, a grid barrier between each two), ``iters`` (Jacobi) or
-``2 * iters`` (power) device launches, as one ``pallas_call`` ran the block
-on the TPU.
+Kernels: ``csrc/dense_kernels.cu`` (one persistent kernel template with an
+epilogue per function, built by ``ops/_kernels.py``).  Each function has a
+``*_plain`` PyTorch twin beside it.  A CPU tensor takes the twin; a CUDA
+tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel calls:
+one per call of a wrapper that reaches the card, which issues one
+cooperative device launch, as one ``pallas_call`` ran the block on the TPU:
+A's rows held in shared memory for all its products (``iters + 1`` for the
+two Neumann variants, ``iters`` for Jacobi and power), a grid barrier
+between each two.  ``iters = 0`` launches nothing for Jacobi and power,
+which then return a copy of ``x0`` or ``v``.
 
 ``FUSED_MAX_NPAD`` and ``FUSED_HIGHEST_MAX_NPAD`` are the TPU's VMEM limits,
 kept so that both packages choose the same path for a matrix.  They apply
@@ -192,13 +193,13 @@ def dense_jacobi_fused(a, diag, inv_diag, b, x0, iters: int = 16):
     if iters == 0:
         return x0.clone()
     lib = library("dense_kernels")
-    xs = torch.empty((2, n, B), dtype=f32, device=dev)
+    x, t = torch.empty_like(b), torch.empty_like(b)
     LAUNCHES["dense_jacobi_fused"] += 1
     rc = lib.slt_dense_jacobi(
         dev.index or 0, n, B, ptr(a), ptr(diag), ptr(inv_diag), ptr(b),
-        ptr(x0), int(iters), ptr(xs[0]), ptr(xs[1]), stream_of(b))
+        ptr(x0), int(iters), ptr(x), ptr(t), stream_of(b))
     raise_on(rc, "dense_jacobi_fused", lib)
-    return xs[(iters - 1) % 2]
+    return x
 
 
 def dense_power_fused(pt, v, dangling, alpha: float, iters: int = 32):
@@ -213,12 +214,13 @@ def dense_power_fused(pt, v, dangling, alpha: float, iters: int = 32):
     if iters == 0:
         return v.clone()
     lib = library("dense_kernels")
-    xs = torch.empty((2, n, B), dtype=f32, device=dev)
-    mass = torch.empty(int(iters), dtype=f32, device=dev)
+    x, t = torch.empty_like(v), torch.empty_like(v)
+    # the blocks' partials of mass, two slots of at most n blocks each
+    part = torch.empty(2 * n, dtype=torch.float64, device=dev)
     LAUNCHES["dense_power_fused"] += 1
     rc = lib.slt_dense_power(
         dev.index or 0, n, B, ptr(pt), ptr(v), ptr(dangling),
-        float(1.0 - alpha), float(alpha), int(iters), ptr(xs[0]), ptr(xs[1]),
-        ptr(mass), stream_of(v))
+        float(1.0 - alpha), float(alpha), int(iters), ptr(x), ptr(t),
+        ptr(part), stream_of(v))
     raise_on(rc, "dense_power_fused", lib)
-    return xs[(iters - 1) % 2]
+    return x

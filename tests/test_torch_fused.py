@@ -127,6 +127,47 @@ def test_dense_neumann_at_path_width(kernel, n):
     _close(got, want, RTOL_X3)
 
 
+def _power_inputs(n, B, seed, p=0.15):
+    """(JAX P^T operator, port P^T operator, (v, dangling) for the port,
+    the same for JAX) of a seeded random graph of edge probability p with
+    every node of the first n // 8 dangling: P^T from the JAX package's
+    ``_transition_matrix``, as tests/test_pallas.py builds it."""
+    rng = np.random.default_rng(seed)
+    dense = (rng.random((n, n)) < p).astype(float)
+    np.fill_diagonal(dense, 0.0)
+    dense[: n // 8] = 0.0  # some dangling nodes
+    PT = _transition_matrix(slt.Matrix.from_dense(dense))
+    jop, pop = PT.op(), _port_matrix(PT).op()
+    v = rng.random((n, B)) + 0.5
+    v /= v.sum(axis=0)
+    dang = np.repeat((dense.sum(axis=1) == 0).astype(float)[:, None], B, 1)
+    (pv, jv), (pd, jd) = _block(v, jop.n_pad), _block(dang, jop.n_pad)
+    return jop, pop, (pv, pd), (jv, jd)
+
+
+@pytest.mark.parametrize("kernel", ["dense_jacobi_fused", "dense_power_fused"])
+def test_dense_jacobi_power_at_path_width(kernel):
+    """#8 and #9 at the widest n the fused path takes (1536, the JAX
+    package's VMEM limit), B=1, T=8, as the card's timings run them; no
+    padding in either package.  Power on a graph of out-degree about 15."""
+    n = 1536
+    if kernel == "dense_power_fused":
+        jop, pop, (pv, pd), (jv, jd) = _power_inputs(n, 1, seed=4,
+                                                     p=15.0 / n)
+        assert jop.n_pad == pop.n_pad == n
+        got = df.dense_power_fused(pop.data, pv, pd, 0.85, iters=BLOCK)
+        want = pk.dense_power_fused(jop.data, jv, jd, 0.85, iters=BLOCK)
+    else:
+        jop, pop, (b, x0), (jb, jx0) = _inputs(n, 1, seed=4)
+        assert jop.n_pad == pop.n_pad == n
+        (d, dinv), (jd, jdinv) = _diag_cols(jop, pop)
+        got = df.dense_jacobi_fused(pop.data, d, dinv, b, x0, iters=BLOCK)
+        want = pk.dense_jacobi_fused(jop.data, jd, jdinv, jb, jx0,
+                                     iters=BLOCK)
+    assert got.shape == (n, 1) and got.dtype == torch.float32
+    _close(got, want, RTOL)
+
+
 @pytest.mark.parametrize("n,B,iters", CASES, ids=CASE_IDS)
 def test_dense_jacobi_fused(n, B, iters):
     jop, pop, (b, x0), (jb, jx0) = _inputs(n, B, seed=3)
@@ -156,16 +197,7 @@ def test_dense_neumann_fused_warm_restart():
 def test_dense_power_fused(n, B, iters):
     """P^T from the JAX package's ``_transition_matrix`` of a seeded random
     graph with dangling nodes, as tests/test_pallas.py builds it."""
-    rng = np.random.default_rng(4 + n)
-    dense = (rng.random((n, n)) < 0.15).astype(float)
-    np.fill_diagonal(dense, 0.0)
-    dense[: n // 8] = 0.0  # some dangling nodes
-    PT = _transition_matrix(slt.Matrix.from_dense(dense))
-    jop, pop = PT.op(), _port_matrix(PT).op()
-    v = rng.random((n, B)) + 0.5
-    v /= v.sum(axis=0)
-    dang = np.repeat((dense.sum(axis=1) == 0).astype(float)[:, None], B, 1)
-    (pv, jv), (pd, jd) = _block(v, jop.n_pad), _block(dang, jop.n_pad)
+    jop, pop, (pv, pd), (jv, jd) = _power_inputs(n, B, seed=4 + n)
     got = df.dense_power_fused(pop.data, pv, pd, 0.85, iters=iters)
     want = pk.dense_power_fused(jop.data, jv, jd, 0.85, iters=iters)
     _close(got, want, RTOL)

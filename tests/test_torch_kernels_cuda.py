@@ -393,15 +393,118 @@ def test_dense_neumann_continuation(card, kernel):
         assert float((g - w).abs().max()) <= rtol * float(w.abs().max())
 
 
-@pytest.mark.parametrize("kernel", NEUMANN_KERNELS)
-def test_dense_neumann_one_device_launch(card, kernel):
-    """A call at the fused path's shape is one device launch of the
+JACOBI_POWER = ("dense_jacobi_fused", "dense_power_fused")
+
+
+@functools.lru_cache(maxsize=None)
+def _graph(n):
+    """P^T (on the card) and the dangling column of ``_stochastic``'s seeded
+    graph at n."""
+    pt, _, dang = _stochastic(n, 1, torch.device("cuda"))
+    return pt, dang
+
+
+def _jacobi_power_case(kernel, n, B, iters, seed=3, full=False):
+    """(kernel call, plain call) of dense_jacobi_fused on _dd_dense(n, full)
+    with _blocks(n, B, seed), or of dense_power_fused (alpha 0.85) on
+    _graph(n) with a seeded positive v whose columns sum to 1 / B.  mass
+    sums dang * x over all B columns, as the Pallas kernel does, so with
+    columns summing to 1 the total grows like (0.85 B)^iters at n = 1 (one
+    dangling node) and overflows f32 in 60 steps; summing to 1 / B, it
+    stays 1."""
+    if kernel == "dense_power_fused":
+        pt, dang = _graph(n)
+        v = torch.as_tensor(np.random.default_rng(seed).random((n, B)) + 0.5,
+                            dtype=torch.float32, device="cuda")
+        v /= B * v.sum(dim=0)
+        dang = dang.expand(n, B).contiguous()
+        return (lambda t=iters: DF.dense_power_fused(pt, v, dang, 0.85, t),
+                lambda t=iters: DF.dense_power_fused_plain(pt, v, dang, 0.85,
+                                                           t))
+    a, d, dinv, _ = _dd_dense(n, full)
+    b, x0 = _blocks(n, B, seed)
+    return (lambda t=iters: DF.dense_jacobi_fused(a, d, dinv, b, x0, t),
+            lambda t=iters: DF.dense_jacobi_fused_plain(a, d, dinv, b, x0, t))
+
+
+@pytest.mark.parametrize("iters", [0, 1, 8, 60])
+@pytest.mark.parametrize("B", [1, 3, 4, 8, 9])
+@pytest.mark.parametrize("kernel,n", [(k, n) for k in JACOBI_POWER
+                                      for n in (1, 301, 768, 1536, 3000)])
+def test_dense_jacobi_power_persistent(card, kernel, n, B, iters):
+    """#8 and #9 on the persistent kernel against their plain versions, as
+    test_dense_neumann_persistent holds #6 and #7: every column tiling, no
+    product (iters = 0: a copy of x0 or v, no launch), one product (no
+    barrier) and many; n = 1 and 301 load their slabs without bulk copies,
+    and n = 3000 reads its last rows from global memory.  For power, B = 9
+    sums mass across two column tiles, and n = 3000 over blocks whose rows
+    live partly in global memory.  Two runs are equal bit for bit: every
+    block adds the partials of mass in one fixed order."""
+    kern, plain = _jacobi_power_case(kernel, n, B, iters)
+    before = DF.LAUNCHES[kernel]
+    got = kern()
+    assert DF.LAUNCHES[kernel] == before + (1 if iters else 0)
+    want = plain()
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n, B)
+    g, w = got.double(), want.double()
+    assert float((g - w).abs().max()) <= RTOL * float(w.abs().max())
+    assert torch.equal(got, kern())
+
+
+@pytest.mark.parametrize("iters", [1, 8])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("n", [768, 1536])
+def test_dense_jacobi_f64_witness(card, n, B, iters):
+    """test_dense_neumann_f64_witness for #8: on the fully dense
+    _dd_dense(n, full=True) the diagonal dominates A x, and x' is what is
+    left once diag x is taken off, so kernel and plain may differ by more
+    than 1e-5 of the result.  The kernel's error against the Jacobi sweeps
+    in f64 on the same f32 inputs is at most WITNESS_FACTOR times the plain
+    version's.  Run with -s to print the errors."""
+    a, d, dinv, _ = _dd_dense(n, True)
+    b, x0 = _blocks(n, B)
+    kern, plain = _jacobi_power_case("dense_jacobi_fused", n, B, iters,
+                                     full=True)
+    got, want = kern().double(), plain().double()
+    exact = DF.dense_jacobi_fused_plain(a.double(), d.double(), dinv.double(),
+                                        b.double(), x0.double(), iters)
+    err_k = float((got - exact).abs().max())
+    err_p = float((want - exact).abs().max())
+    print(f"f64 witness dense_jacobi_fused n={n} B={B} iters={iters}: max "
+          f"|x| {float(exact.abs().max()):.4e}, |kernel - f64| {err_k:.4e}, "
+          f"|plain - f64| {err_p:.4e}, |kernel - plain| "
+          f"{float((got - want).abs().max()):.4e}")
+    assert err_k <= WITNESS_FACTOR * err_p
+
+
+@pytest.mark.parametrize("iters", [1, 8])
+@pytest.mark.parametrize("kernel", JACOBI_POWER)
+def test_dense_jacobi_power_wide_block(card, kernel, iters):
+    """B = 700 at n = 768: 88 column tiles, and a block's rows of b (or of
+    v and dang) past the 16 KB the kernel keeps in shared memory, so they
+    are read from global memory; power's mass sums 88 tiles."""
+    kern, plain = _jacobi_power_case(kernel, 768, 700, iters)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    g, w = got.double(), want.double()
+    assert float((g - w).abs().max()) <= RTOL * float(w.abs().max())
+    assert torch.equal(got, kern())
+
+
+@pytest.mark.parametrize("kernel", sorted(DF.LAUNCHES))
+def test_dense_one_device_launch(card, kernel):
+    """A call of each dense kernel at its timed shape (B = 1, iters = 8;
+    n = 768 for #6, 1536 for the others) is one device launch of the
     persistent kernel (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     n = 768 if kernel == "dense_neumann_fused" else 1536
-    kern, _ = _neumann_case(kernel, n, 1, 8)
+    if kernel in NEUMANN_KERNELS:
+        kern, _ = _neumann_case(kernel, n, 1, 8)
+    else:
+        kern, _ = _jacobi_power_case(kernel, n, 1, 8)
     kern()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -413,7 +516,7 @@ def test_dense_neumann_one_device_launch(card, kernel):
     launched = {k: c for k, c in counts.items() if "dense_" in k}
     assert len(launched) == 1, counts
     ((name, count),) = launched.items()
-    assert "dense_neumann_kernel" in name and count == 4, counts
+    assert "dense_fused_kernel" in name and count == 4, counts
 
 
 def test_dense_neumann_continues_and_rejects_cpu_mix(card):

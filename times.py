@@ -22,10 +22,13 @@ bound (chip_smoke.py's chain_bounds), and the launches of one call.
 a seeded column-stochastic P^T for dense_power_fused) at the shape
 chip_smoke.py reports it at (B=1, iters=8; dense_neumann_fused at n=768, the
 other three at n=1536): the time per back-to-back call and the device time
-of the whole call with its device launches per call.  The two Neumann
-kernels also at B=4, and at B=1 with iters 0 and 1: iters=0 is a call's
-fixed cost (the launch, the load of A and the init product), and iters=8
-less iters=0, over 8, the cost of one iteration with its grid barrier.
+of the whole call with its device launches per call.  Each also at B=4,
+and at B=1 with iters 0 and 1.  For the two Neumann kernels iters=0 is a
+call's fixed cost (the launch, the load of A and the init product), and
+iters=8 less iters=0, over 8, the cost of one iteration with its grid
+barrier.  Jacobi and power launch nothing at iters=0 (a copy of x0 or v):
+iters=1 is their fixed cost with one product, and iters=8 less iters=1,
+over 7, the cost of one iteration.
 Then three profiled warm solve_neumann_fused calls at n=768 (epsilon 1e-6):
 wall time, device busy time and idle share.
 """
@@ -55,8 +58,10 @@ DENSE_SHAPES = {
     "dense_neumann_fused_bf16x3": [(1536, 1, DENSE_ITERS),
                                    (1536, 4, DENSE_ITERS), (1536, 1, 0),
                                    (1536, 1, 1)],
-    "dense_jacobi_fused": [(1536, 1, DENSE_ITERS)],
-    "dense_power_fused": [(1536, 1, DENSE_ITERS)],
+    "dense_jacobi_fused": [(1536, 1, DENSE_ITERS), (1536, 4, DENSE_ITERS),
+                           (1536, 1, 0), (1536, 1, 1)],
+    "dense_power_fused": [(1536, 1, DENSE_ITERS), (1536, 4, DENSE_ITERS),
+                          (1536, 1, 0), (1536, 1, 1)],
 }
 
 
