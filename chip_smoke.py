@@ -70,7 +70,32 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
      host f64 residual and warm times per batch and per RHS;
  18. the small-batch path: solve_batch with 20 RHS at n=100k, which runs
      serialized Neumann chain solves (neumann_step, no csr_spmm);
- 19. the figures of csr_spmv (phases 3 and 6) and csr_spmm (phase 16, f32)
+ 19. the stationary solvers on the headline matrix with b = rhs(n, seed=7),
+     epsilon 1e-6: method="jacobi", "gauss-seidel" and "sor" (multicolor,
+     one csr_spmv per color), with the greedy coloring's colors, host
+     seconds and branch, and csr_spmv launches equal to k * colors plus the
+     residual checks;
+ 20. the walkers: walk_estimate on 10,000 rows of the headline matrix
+     (default_rng(11)), SolverOptions(epsilon=1e-3, num_walks=64), for each
+     strategy, and control variates on 1,000 of the rows, each held to the
+     exact solve (Neumann at 1e-6): 99% of the entries within 5 standard
+     errors; then solve(method="random-walk") on the canonical n=1000
+     matrix;
+ 21. hybrid on the headline matrix at epsilon 1e-6 (converged), and the
+     forcing case: the tridiagonal matrix + 0.5 I at n=100k with
+     max_iterations=20 and max_walk_length=64, whose walker phase must run;
+ 22. BMSSP on the headline matrix with 20 nonzeros in b (default_rng(0)
+     positions): the Bellman-Ford path, shortest_paths held to a host
+     multi-source Dijkstra (heapq) at rtol 1e-5, and batched_distances from
+     64 sources, two of its rows held to Dijkstra the same way;
+ 23. the serving solvers: solve_refined at epsilon 1e-12 with the f64 device
+     residual (host f64 relative residual <= 1e-12), PreparedSolver(A,
+     "neumann") over 10 right-hand sides against solve() and
+     PreparedSolver(S, "cg") on the SPD matrix, streaming_solve (CG,
+     chunk_iters=10) on the SPD matrix with one DeltaUpdate queued after the
+     first chunk, and solve_streaming on the n=1M matrix in >= 8 row panels,
+     the panel product held to CsrOperator.matvec;
+ 24. the figures of csr_spmv (phases 3 and 6) and csr_spmm (phase 16, f32)
      with their device times, the device times of the two chain kernels at
      n=100k (neumann_step per step of phase 5's chain, cg_step per step of
      phase 8's), and the device time and device launches per call of the
@@ -78,6 +103,9 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
      one launch of the persistent dense_fused_kernel).  They come last
      because a torch.profiler window slows the host-bound solves that
      follow it in the same process (BiCGSTAB, CG on the ELL route).
+
+Phases 19-23 each set the kernels' launch counts to 0 before they drive
+their path and print the counts after it.
 
 Beside each kernel's time the script computes its bound (the least time the
 card could take: the bytes the function must move at 3.35 TB/s, or its
@@ -87,7 +115,7 @@ function (a CUDA torch.sparse_csr_tensor of A times x, or times X with
 torch.sparse.mm) as a yardstick the port never calls.  The figures of those
 two kernels: the time per back-to-back call (CUDA events, host work
 included), the device time alone (torch.profiler over a window of
-back-to-back calls, phase 19), both also for the yardstick, the bound and
+back-to-back calls, phase 24), both also for the yardstick, the bound and
 its share,
 the bytes per second achieved (the bound's bytes over the device time) and
 the L2 traffic of the gathers, computed from the shapes (a 32-byte sector
@@ -130,6 +158,15 @@ X3_RTOL = 1e-4          # bf16x3: the bf16 split of t may round the other way
 N_RHS = 128             # bench.py's batch row (bench_batch_point)
 N_RHS_CHAIN = 20        # solve_batch's serialized-chain path (<= 32 RHS)
 SPMM_WIDTHS = (8, 128)
+N_WALK_ROWS, N_CV_ROWS = 10_000, 1_000  # bench.py's MC entry row
+WALKS = 64
+WALK_SE = 5             # an estimate within 5 standard errors (+1e-6) ...
+WALK_SHARE = 0.99       # ... for at least 99% of the entries
+N_BMSSP_SOURCES, N_BATCH_SOURCES = 20, 64
+DIJKSTRA_RTOL = 1e-5
+N_PREPARED = 10
+PREPARED_RTOL = 1e-6
+MIN_PANELS = 8
 DEVICE_REPS = 50        # back-to-back calls in a profiled window
 SECTOR_BYTES = 32       # what L2 moves for one gathered 4-byte x element
 # f32 operations per stored entry and column of each csr_spmm product
@@ -431,7 +468,7 @@ def spmv_figures(torch, K, A, op, x, label, reps):
     torch.sparse_csr_tensor of the full A, a yardstick the port never
     calls), after raising unless the yardstick agrees with the kernel and,
     on rows of at most SPMV_LONG_ROW entries, csr_spmv equals a one-column
-    csr_spmm bit for bit.  Returns the ``Figures`` phase 19 prints."""
+    csr_spmm bit for bit.  Returns the ``Figures`` phase 24 prints."""
     n, nnz = op.n_pad, op.indices.numel()
     S = sparse_csr(torch, A, x.device)
     kern, lib = lambda: K.csr_spmv(op, x, op.diag), lambda: torch.mv(S, x)
@@ -537,6 +574,345 @@ def stochastic(torch, n, B, dev, seed=SEED):
                                  device=dev) for m in (pt, v, dang))
 
 
+def dijkstra(csr, sources):
+    """Multi-source Dijkstra (heapq, f64) over A's graph: edge i -> j of
+    cost 1/|a_ij| for each stored off-diagonal entry, the graph BMSSP's
+    Bellman-Ford relaxes through the in-edges."""
+    import heapq
+
+    indptr, indices, data = (csr.indptr.tolist(), csr.indices.tolist(),
+                             np.abs(csr.data).tolist())
+    dist = [math.inf] * csr.shape[0]
+    heap = [(0.0, int(s)) for s in sources]
+    for _, s in heap:
+        dist[s] = 0.0
+    heapq.heapify(heap)
+    while heap:
+        d, u = heapq.heappop(heap)
+        if d > dist[u]:
+            continue
+        for k in range(indptr[u], indptr[u + 1]):
+            v = indices[k]
+            if v != u:
+                nd = d + 1.0 / max(data[k], 1e-30)
+                if nd < dist[v]:
+                    dist[v] = nd
+                    heapq.heappush(heap, (nd, v))
+    return np.asarray(dist)
+
+
+def check_distances(dist, ref, label):
+    """Raise unless ``dist`` reaches exactly the nodes ``ref`` reaches and
+    agrees with it there within DIJKSTRA_RTOL."""
+    reach = np.isfinite(ref)
+    if not np.array_equal(dist < 1e29, reach):
+        raise RuntimeError(f"{label}: reached {int((dist < 1e29).sum())} "
+                           f"nodes, Dijkstra {int(reach.sum())}")
+    err = float(np.max(np.abs(dist[reach] - ref[reach])
+                       / np.maximum(np.abs(ref[reach]), 1e-30)))
+    if not err <= DIJKSTRA_RTOL:
+        raise RuntimeError(f"{label}: max rel diff from Dijkstra {err}")
+    return int(reach.sum()), err
+
+
+def counted(K):
+    """The launch counts of the CSR kernels as a compact dict."""
+    return {k: v for k, v in K.LAUNCHES.items() if v}
+
+
+def solver_family(torch, slt, K, A, b, S, A_big, b_big):
+    """Phases 19-23: the rest of the solver family on the card."""
+    from sublinear_tpu_torch import native
+    from sublinear_tpu_torch.formats import streaming as FS
+    from sublinear_tpu_torch.solvers import bmssp as BM
+    from sublinear_tpu_torch.solvers import jacobi as SJ
+    from sublinear_tpu_torch.solvers import random_walk as RW
+    from sublinear_tpu_torch.solvers import refine as RF
+    from sublinear_tpu_torch.solvers.hybrid import solve_hybrid
+    from sublinear_tpu_torch.solvers.prepared import PreparedSolver
+    from sublinear_tpu_torch.solvers.streaming import (StreamControl,
+                                                       streaming_solve)
+
+    n = A.shape[0]
+    phase(f"19 stationary solvers at n={n}: jacobi, gauss-seidel, sor")
+    t0 = time.perf_counter()
+    colors = SJ.greedy_coloring(A)
+    color_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    SJ.greedy_coloring(A)  # A^T cached: what every GS/SOR solve repeats
+    again_s = time.perf_counter() - t0
+    branch = ("native" if n > SJ.NATIVE_COLORING_MIN_N and native.available()
+              else "numpy")
+    n_colors = int(colors.max()) + 1
+    print(f"greedy coloring: {n_colors} colors, the {branch} branch, "
+          f"{color_s:.4f} host seconds on the first call (A^T built), "
+          f"{again_s:.4f} on the next", flush=True)
+    for method in ("jacobi", "gauss-seidel", "sor"):
+        reset(K)
+        r, rel = check_solve(slt, A, b, f"{method} n={n}", method)
+        counts = counted(K)
+        per = 1 if method == "jacobi" else n_colors
+        # one product per color and sweep, one per residual check
+        want = r.iterations * per + r.iterations // 5 + 1
+        if counts != {"csr_spmv": want}:
+            raise RuntimeError(f"{method}: launches {counts}, csr_spmv "
+                               f"expected {want}")
+        warm = warm_ms(torch, lambda: slt.solve(A, b, method=method,
+                                                epsilon=1e-6), 3)
+        print(f"{method}: ran {r.method}, iterations={r.iterations} "
+              f"residual={r.residual:.3e} host f64 rel residual={rel:.3e} "
+              f"launches={counts} (k * {per} + k / 5 + 1) warm solve ms "
+              f"{' '.join(f'{t:.4f}' for t in warm)}", flush=True)
+
+    phase(f"20 walkers: walk_estimate on {N_WALK_ROWS} rows at n={n}")
+    exact = slt.solve(A, b, method="neumann", epsilon=1e-6).solution
+    rows = np.random.default_rng(11).integers(0, n, N_WALK_ROWS)
+    cases = [(s, {"sampling": s}, rows) for s in
+             ("importance", "uniform", "stratified", "qmc", "adaptive")]
+    cases.append(("control-variates",
+                  {"variance_reduction": "control-variates"},
+                  rows[:N_CV_ROWS]))
+    for label, kw, sel in cases:
+        opts = slt.SolverOptions(epsilon=1e-3, num_walks=WALKS, **kw)
+        RW.walk_estimate(A, b, sel[:100], opts)  # tables built, warm
+        reset(K)
+        est, var, steps = RW.walk_estimate(A, b, sel, opts)
+        counts = counted(K)
+        se = np.sqrt(np.maximum(var, 0.0) / WALKS)
+        share = float(np.mean(np.abs(est - exact[sel]) <= WALK_SE * se + 1e-6))
+        if not (np.all(np.isfinite(est)) and est.shape == sel.shape
+                and share >= WALK_SHARE):
+            raise RuntimeError(f"walk_estimate {label}: {share:.4f} of the "
+                               f"entries within {WALK_SE} standard errors")
+        if label == "control-variates" and counts != {
+                "csr_spmv": RW.CV_HEAD_STEPS}:
+            raise RuntimeError(f"control variates: launches {counts}")
+        warm = warm_ms(torch, lambda: RW.walk_estimate(A, b, sel, opts), 2)
+        print(f"{label}: {sel.size} entries, {steps} steps, {share:.4f} within"
+              f" {WALK_SE} SE of the exact solve, mean SE {se.mean():.3e}, "
+              f"launches {counts}; warm ms "
+              f"{' '.join(f'{t:.3f}' for t in warm)}, us per entry "
+              f"{' '.join(f'{t / sel.size * 1e3:.3f}' for t in warm)}",
+              flush=True)
+    A1 = slt.generate("random-sparse", 1000, seed=7, density=0.001)
+    b1 = slt.rhs(1000, seed=7)
+    r = slt.solve(A1, b1, method="random-walk", raise_on_fail=False)
+    (rw_ms,) = warm_ms(torch, lambda: slt.solve(
+        A1, b1, method="random-walk", raise_on_fail=False), 1)
+    rel = host_residual(A1, r.solution, b1)
+    if not (r.method == "random-walk" and np.all(np.isfinite(r.solution))
+            and rel < 1e-2):
+        raise RuntimeError(f"random-walk n=1000: method={r.method} host rel "
+                           f"residual {rel}")
+    walks = RW.default_num_walks(slt.SolverOptions())
+    print(f"solve(method='random-walk') n=1000: {walks} walks per entry, "
+          f"steps={r.iterations} converged={r.converged} host f64 rel "
+          f"residual={rel:.3e} warm ms {rw_ms:.1f}", flush=True)
+
+    phase(f"21 hybrid at n={n}")
+    reset(K)
+    r, rel = check_solve(slt, A, b, f"hybrid n={n}", "hybrid")
+    counts = counted(K)
+    if not counts.get("csr_spmv"):
+        raise RuntimeError(f"hybrid: launches {counts}")
+    warm = warm_ms(torch, lambda: slt.solve(A, b, method="hybrid",
+                                            epsilon=1e-6), 3)
+    phases = [(q["phase"], q["iterations"], q.get("switch_reason"))
+              for q in r.phases]
+    print(f"hybrid headline: iterations={r.iterations} host f64 rel "
+          f"residual={rel:.3e} phases={phases} launches={counts} warm "
+          f"solve ms {' '.join(f'{t:.4f}' for t in warm)}", flush=True)
+    T = slt.Matrix(slt.generate("tridiagonal", n).csr.add_diagonal(0.5))
+    b_t = slt.rhs(n, seed=3)
+    opts = slt.SolverOptions(epsilon=1e-6, max_iterations=20,
+                             max_walk_length=64)
+    reset(K)
+    r = solve_hybrid(T, b_t, opts, raise_on_fail=False)
+    counts = counted(K)
+    (secs,) = warm_ms(torch, lambda: solve_hybrid(T, b_t, opts,
+                                                  raise_on_fail=False), 1)
+    names = [q["phase"] for q in r.phases]
+    rel = host_residual(T, r.solution, b_t)
+    if not ("random-walk" in names and np.all(np.isfinite(r.solution))
+            and r.residual < float(np.linalg.norm(b_t))):
+        raise RuntimeError(f"hybrid forcing case: phases {r.phases}")
+    mc = r.phases[names.index("random-walk")]
+    print(f"hybrid forcing case (tridiagonal + 0.5 I, route "
+          f"{T._op_kind()}): phases {names}, push "
+          f"{r.phases[0]['iterations']} iterations "
+          f"({r.phases[0]['switch_reason']}), walker rounds "
+          f"{mc['iterations']} blends {mc['blends']}, residual "
+          f"{r.residual:.3e} (host f64 rel {rel:.3e}) converged="
+          f"{r.converged} launches {counts} warm ms {secs:.1f}", flush=True)
+    del T, b_t
+
+    phase(f"22 BMSSP at n={n}")
+    rng = np.random.default_rng(0)
+    src = rng.choice(n, N_BMSSP_SOURCES, replace=False)
+    b_s = np.zeros(n)
+    b_s[src] = rng.uniform(0.5, 1.5, N_BMSSP_SOURCES)
+    reset(K)
+    t0 = time.perf_counter()
+    r = slt.solve(A, b_s, method="bmssp", raise_on_fail=False)
+    first_s = time.perf_counter() - t0
+    counts = counted(K)
+    warm = warm_ms(torch, lambda: slt.solve(A, b_s, method="bmssp",
+                                            raise_on_fail=False), 3)
+    if r.method != "bmssp" or not np.all(np.isfinite(r.solution)):
+        raise RuntimeError(f"bmssp: method {r.method}")
+    dist, x, sweeps = BM.shortest_paths(A, src, b_s[src])
+    t0 = time.perf_counter()
+    ref = dijkstra(A.csr, src)
+    dj_s = time.perf_counter() - t0
+    reached, err = check_distances(dist, ref, "shortest_paths")
+    print(f"solve(method='bmssp'): ran {r.method}, {r.iterations} sweeps, "
+          f"first call {first_s * 1e3:.1f} ms (the in-edge tables built), "
+          f"warm ms {' '.join(f'{t:.3f}' for t in warm)}, launches {counts}; "
+          f"shortest_paths "
+          f"{sweeps} sweeps, {reached} nodes reached, max rel diff from "
+          f"Dijkstra {err:.2e} (Dijkstra {dj_s:.2f} host s)", flush=True)
+    srcs = np.random.default_rng(1).choice(n, N_BATCH_SOURCES, replace=False)
+    D = BM.batched_distances(A, srcs)
+    warm = warm_ms(torch, lambda: BM.batched_distances(A, srcs), 2)
+    for j in (0, N_BATCH_SOURCES - 1):
+        reached, err = check_distances(D[j], dijkstra(A.csr, [srcs[j]]),
+                                       f"batched_distances source {j}")
+        print(f"batched_distances from {N_BATCH_SOURCES} sources: row {j} "
+              f"reaches {reached} nodes, max rel diff from Dijkstra "
+              f"{err:.2e}", flush=True)
+    print(f"batched_distances from {N_BATCH_SOURCES} sources: warm ms "
+          f"{' '.join(f'{t:.3f}' for t in warm)}", flush=True)
+
+    phase("23 serving solvers: solve_refined, PreparedSolver, "
+          "streaming_solve, solve_streaming")
+    inner = {"solves": 0}
+    plain_solve = RF.solve
+
+    def counting_solve(*a, **kw):
+        inner["solves"] += 1
+        return plain_solve(*a, **kw)
+
+    RF.solve = counting_solve
+    try:
+        reset(K)
+        r = RF.solve_refined(A, b, slt.SolverOptions(epsilon=1e-12))
+        counts = counted(K)
+    finally:
+        RF.solve = plain_solve
+    rel = host_residual(A, r.solution, b)
+    warm = warm_ms(torch, lambda: RF.solve_refined(
+        A, b, slt.SolverOptions(epsilon=1e-12)), 3)
+    if not (r.converged and rel <= 1e-12 and counts.get("neumann_step")):
+        raise RuntimeError(f"solve_refined: converged={r.converged} host rel"
+                           f" residual {rel} launches {counts}")
+    print(f"solve_refined: ran {r.method}, {inner['solves']} refinements, "
+          f"{r.iterations} inner iterations, device f64 residual "
+          f"{r.residual / np.linalg.norm(b):.3e} relative, host f64 "
+          f"{rel:.3e}, launches {counts}, warm ms "
+          f"{' '.join(f'{t:.3f}' for t in warm)}", flush=True)
+    reset(K)
+    ps = PreparedSolver(A, "neumann")
+    B = np.random.default_rng(5).standard_normal((n, N_PREPARED))
+    worst = 0.0
+    for j in range(N_PREPARED):
+        got, want = ps.solve(B[:, j]), slt.solve(A, B[:, j], method="neumann")
+        diff = float(np.abs(got.solution - want.solution).max()
+                     / np.abs(want.solution).max())
+        worst = max(worst, diff)
+        if not (got.converged and got.iterations == want.iterations
+                and diff <= PREPARED_RTOL):
+            raise RuntimeError(f"PreparedSolver rhs {j}: iterations "
+                               f"{got.iterations} vs {want.iterations}, rel "
+                               f"diff {diff}")
+    counts = counted(K)
+    if not counts.get("neumann_step"):
+        raise RuntimeError(f"PreparedSolver: launches {counts}")
+    bj = B[:, 0]
+    prep = warm_ms(torch, lambda: ps.solve(bj), 5)
+    plain = warm_ms(torch, lambda: slt.solve(A, bj, method="neumann"), 5)
+    print(f"PreparedSolver(neumann): {N_PREPARED} RHS, {got.iterations} "
+          f"iterations each, max rel diff from solve() {worst:.2e}, launches "
+          f"{counts}; warm ms per prepared solve "
+          f"{' '.join(f'{t:.4f}' for t in prep)}, per solve() "
+          f"{' '.join(f'{t:.4f}' for t in plain)}", flush=True)
+    reset(K)
+    pcg = PreparedSolver(S, "cg")
+    r = pcg.solve(b)
+    rel = host_residual(S, r.solution, b)
+    counts = counted(K)
+    if not (r.converged and rel < SOLVE_RTOL and counts.get("cg_step")):
+        raise RuntimeError(f"PreparedSolver(cg): rel {rel} launches {counts}")
+    prep = warm_ms(torch, lambda: pcg.solve(b), 5)
+    print(f"PreparedSolver(cg) on the SPD matrix: {r.iterations} iterations,"
+          f" host f64 rel residual {rel:.3e}, launches {counts}, warm ms "
+          f"{' '.join(f'{t:.4f}' for t in prep)}", flush=True)
+    def stream():
+        control, chunks = StreamControl(), []
+        for i, ch in enumerate(streaming_solve(
+                S, b, slt.SolverOptions(), method="conjugate-gradient",
+                chunk_iters=10, control=control)):
+            chunks.append(ch)
+            if i == 0:
+                control.push_delta([0, 1], [0.5, -0.5])
+        return chunks
+
+    reset(K)
+    out = stream()
+    counts = counted(K)
+    warm = warm_ms(torch, stream, 3)
+    chunks = [(c.iteration, c.converged, c.rhs_version, f"{c.residual:.3e}")
+              for c in out]
+    last = out[-1]
+    b2 = b.copy()
+    b2[[0, 1]] += [0.5, -0.5]
+    rel = host_residual(S, last.solution, b2)
+    if not (last.converged and last.rhs_version == 1 and rel < SOLVE_RTOL
+            and counts.get("csr_spmv")):
+        raise RuntimeError(f"streaming_solve: chunks {chunks} rel {rel}")
+    print(f"streaming_solve (CG, chunk_iters=10, one delta after chunk 1): "
+          f"chunks (iteration, converged, rhs_version, residual) {chunks}; "
+          f"host f64 rel residual to the updated b {rel:.3e}; launches "
+          f"{counts}; warm ms {' '.join(f'{t:.3f}' for t in warm)}",
+          flush=True)
+    K_row = int(A_big.csr.row_nnz().max())
+    budget = K_row * 8 * (A_big.shape[0] // MIN_PANELS // 128 * 128)
+    t0 = time.perf_counter()
+    sop = FS.StreamingOperator(A_big.csr, budget)
+    build_s = time.perf_counter() - t0
+    if sop.n_panels < MIN_PANELS:
+        raise RuntimeError(f"{sop.n_panels} panels < {MIN_PANELS}")
+    xs = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        A_big.shape[0]), dtype=torch.float32, device=A_big.device)
+    reset(K)
+    t0 = time.perf_counter()
+    y = sop.matvec_device(xs)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    if K.LAUNCHES["csr_spmv"] != sop.n_panels:
+        raise RuntimeError(f"panel product launches {counted(K)}")
+    err = rel_err(y, A_big.op().matvec(xs))
+    if not err <= KERNEL_RTOL:
+        raise RuntimeError(f"panel product vs CsrOperator.matvec: {err}")
+    panel_ms = time_ms(torch, lambda: sop.matvec_device(xs), 5)
+    reset(K)
+    t0 = time.perf_counter()
+    r = FS.solve_streaming(A_big, b_big, panel_budget=budget)
+    secs = time.perf_counter() - t0
+    rel = host_residual(A_big, r.solution, b_big)
+    counts = counted(K)
+    if not (r.converged and r.method == "neumann-streaming"
+            and rel < SOLVE_RTOL):
+        raise RuntimeError(f"solve_streaming: converged={r.converged} rel "
+                           f"{rel}")
+    print(f"solve_streaming n={A_big.shape[0]}: {sop.n_panels} panels "
+          f"(panel_budget {budget} B, max row {K_row}) built in {build_s:.3f} "
+          f"s, first product {first_s * 1e3:.1f} ms (row blocks cut), panel "
+          f"product vs CsrOperator.matvec max rel err {err:.3e}, "
+          f"{panel_ms:.3f} ms per warm streamed product; iterations={r.iterations} host f64 rel "
+          f"residual {rel:.3e} wall {secs * 1e3:.1f} ms launches {counts}",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", type=Path, default=None,
@@ -568,6 +944,11 @@ def main() -> int:
     phase("2 build")
     _, build_s, log = _kernels.build()
     print(f"build seconds: {build_s:.2f}", flush=True)
+    from sublinear_tpu_torch import native
+
+    t0 = time.perf_counter()
+    print(f"native host helpers (g++): built={native.available()} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     for line in log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
@@ -610,7 +991,7 @@ def main() -> int:
                 raise RuntimeError(f"{name} {label} disagrees with its plain "
                                    f"version: {rel} > {KERNEL_RTOL}")
     check_chain_products(torch, K, op, x, f"n={N_MAIN}")
-    # the figures phase 19 prints, by kernel, the first of each on the path
+    # the figures phase 24 prints, by kernel, the first of each on the path
     late = {"csr_spmv": [spmv_figures(torch, K, A, op, x, f"n={N_MAIN}",
                                       200)]}
     main_fig = late["csr_spmv"][0]
@@ -929,7 +1310,7 @@ def main() -> int:
     cases += [(name, n, 1, 0)
               for name in ("dense_jacobi_fused", "dense_power_fused")
               for n in DENSE_SIZES + (N_DENSE_GLOBAL,)]
-    dense_fns = {}  # the calls phase 19 profiles, at the timed shapes
+    dense_fns = {}  # the calls phase 24 profiles, at the timed shapes
     for name, n, B, iters in cases:
         kern, plain = dense_case(name, n, B, iters)
         got, want = kern(), plain()
@@ -1163,7 +1544,9 @@ def main() -> int:
           f"{rels.max():.3e} launches={counts}; warm ms per batch "
           f"{' '.join(f'{t:.4f}' for t in warm)}", flush=True)
 
-    phase("19 device times of the sparse products, the chains and the dense "
+    solver_family(torch, slt, K, A, b, S, A_big, b_big)
+
+    phase("24 device times of the sparse products, the chains and the dense "
           "kernels (torch.profiler)")
     dev_ms = {name: [fig.report(torch) for fig in figs][0]
               for name, figs in late.items()}

@@ -1,14 +1,13 @@
 """Top-level ``solve()``: validation, DD gating and adaptive method choice, as
 in ``sublinear_tpu/solvers/dispatch.py``.
 
-Of the solver family, the Neumann series, CG, BiCGSTAB, Chebyshev and the
-three push directions are ported.  ``ADAPTIVE`` runs what ``select_method``
-picks and, when a non-Krylov choice does not converge, polishes with CG
-(symmetric) or BiCGSTAB from its iterate, as the JAX package does.  Every
-other method raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.  The E001 gate
-runs first, exactly as in the JAX package, so error codes match for every
-method.
+Every ``Method`` of the JAX package is routed to its port: the Neumann
+series, CG, BiCGSTAB, Chebyshev, Jacobi, multicolor Gauss-Seidel and SOR,
+the three push directions, random walk, hybrid and BMSSP.  ``ADAPTIVE``
+runs what ``select_method`` picks and, when a non-Krylov choice does not
+converge, polishes with CG (symmetric) or BiCGSTAB from its iterate, as the
+JAX package does.  The E001 gate runs first, exactly as in the JAX package,
+so error codes match for every method.
 """
 from __future__ import annotations
 
@@ -38,21 +37,6 @@ _DD_REQUIRED = {
     Method.CHEBYSHEV,
     Method.HYBRID,
 }
-
-_ROADMAP_ITEM = {
-    Method.JACOBI: "queue 1, item 5",
-    Method.GAUSS_SEIDEL: "queue 1, item 5",
-    Method.SOR: "queue 1, item 5",
-    Method.RANDOM_WALK: "queue 1, item 4",
-    Method.HYBRID: "queue 1, item 6",
-    Method.BMSSP: "queue 1, item 6",
-}
-
-
-def _not_ported(m: Method) -> NotImplementedError:
-    return NotImplementedError(
-        f"method '{m.value}' is not ported yet (ROADMAP {_ROADMAP_ITEM[m]})")
-
 
 def _validate(matrix: Matrix, b) -> np.ndarray:
     if not isinstance(matrix, Matrix):
@@ -162,13 +146,33 @@ def solve(
         from . import chebyshev as _cheb
 
         return _cheb.solve_chebyshev(matrix, b, options, raise_on_fail)
+    if m in (Method.JACOBI, Method.GAUSS_SEIDEL, Method.SOR):
+        from . import jacobi as _jacobi
+
+        if m == Method.JACOBI:
+            return _jacobi.solve_jacobi(matrix, b, options, raise_on_fail)
+        if m == Method.GAUSS_SEIDEL:
+            return _jacobi.solve_gauss_seidel(matrix, b, options,
+                                              raise_on_fail)
+        return _jacobi.solve_sor(matrix, b, options,
+                                 raise_on_fail=raise_on_fail)
     if m in (Method.FORWARD_PUSH, Method.BACKWARD_PUSH, Method.BIDIRECTIONAL):
         from . import push as _push
 
         return _push.solve_push(matrix, b, options, direction=m.value,
                                 raise_on_fail=raise_on_fail)
-    if m in _ROADMAP_ITEM:
-        raise _not_ported(m)
+    if m == Method.RANDOM_WALK:
+        from . import random_walk as _rw
+
+        return _rw.solve_random_walk(matrix, b, options, raise_on_fail)
+    if m == Method.HYBRID:
+        from . import hybrid as _hybrid
+
+        return _hybrid.solve_hybrid(matrix, b, options, raise_on_fail)
+    if m == Method.BMSSP:
+        from . import bmssp as _bmssp
+
+        return _bmssp.solve_bmssp(matrix, b, options, raise_on_fail)
     from ..errors import InvalidParametersError
 
     raise InvalidParametersError(f"Unknown method: {m}")

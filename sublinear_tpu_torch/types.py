@@ -1,10 +1,7 @@
 """Core option/result types, as in ``sublinear_tpu/types.py``.
 
-Differences from the JAX package:
-  - ``SolverOptions.dtype`` holds a ``torch.dtype`` (None means float32, see
-    ``config.resolve_dtype``);
-  - the streaming types (``SolutionChunk``, ``DeltaUpdate``) wait for the
-    streaming solvers' port.
+Difference from the JAX package: ``SolverOptions.dtype`` holds a
+``torch.dtype`` (None means float32, see ``config.resolve_dtype``).
 
 Convergence defaults to the *relative* l2 residual, which is what f32
 arithmetic can certify; ``check_every`` sets how often the residual is
@@ -209,3 +206,39 @@ class SolverResult:
         if self.distribution is not None:
             d["distribution"] = dict(self.distribution)
         return d
+
+
+@dataclasses.dataclass
+class SolutionChunk:
+    """Streaming chunk (reference: src/types.rs:196-211)."""
+
+    iteration: int
+    residual: float
+    converged: bool
+    solution: Optional[np.ndarray] = None
+    timestamp_ms: float = 0.0
+    verification: Optional[dict] = None  # in-stream probe event (streaming.js:323-420)
+    rhs_version: int = 0                 # live update_rhs generation counter
+
+    def to_dict(self) -> dict:
+        d = {
+            "iteration": int(self.iteration),
+            "residual": float(self.residual),
+            "converged": bool(self.converged),
+            "timestamp": float(self.timestamp_ms),
+        }
+        if self.solution is not None:
+            d["solution"] = np.asarray(self.solution).tolist()
+        if self.verification is not None:
+            d["verification"] = self.verification
+        if self.rhs_version:
+            d["rhsVersion"] = int(self.rhs_version)
+        return d
+
+
+@dataclasses.dataclass
+class DeltaUpdate:
+    """Incremental RHS update (reference: src/types.rs:184-193, neumann.rs:436-462)."""
+
+    indices: np.ndarray
+    values: np.ndarray

@@ -1,6 +1,7 @@
 """Host modules of the port against the JAX package: generators, CSR,
-analysis, the operator router, the split diagonal, error codes — and the
-rule that the port imports neither jax nor the JAX package."""
+analysis, the operator router, the split diagonal, error codes, matrix file
+IO, the LRU cache and the streaming types — and the rule that the port
+imports neither jax nor the JAX package."""
 import ast
 import dataclasses
 from pathlib import Path
@@ -176,6 +177,7 @@ def test_port_imports_no_jax():
     root = Path(slp.__file__).resolve().parent
     files = sorted(root.rglob("*.py"))
     assert len(files) > 10
+    assert root / "native" / "__init__.py" in files
     scripts = [root.parent / "chip_smoke.py",
                root.parent / "sweep_sparse_kernels.py",
                root.parent / "times.py"]
@@ -221,3 +223,84 @@ def test_solve_timer_syncs_only_its_device(monkeypatch):
     with SolveTimer(torch.device("cpu")) as t:
         pass
     assert t.ms >= 0.0
+
+
+IO_FORMATS = ["json", "mtx", "csv"]
+
+
+@pytest.mark.parametrize("fmt", IO_FORMATS)
+def test_io_round_trip_bit_identical(tmp_path, fmt):
+    """A matrix saved by the port and loaded by both packages (and saved by
+    the JAX package and loaded by the port) gives bit-identical CSR
+    arrays."""
+    from sublinear_tpu.formats import io as jio
+    from sublinear_tpu_torch.formats import io as pio
+
+    a = slt.generate("random-sparse", 60, seed=3, density=0.1)
+    p = slp.generate("random-sparse", 60, seed=3, density=0.1)
+    pio.save_matrix(p, tmp_path / f"p.{fmt}")
+    jio.save_matrix(a, tmp_path / f"j.{fmt}")
+    for name in ("p", "j"):
+        path = str(tmp_path / f"{name}.{fmt}")
+        got, want = pio.load_matrix(path), jio.load_matrix(path)
+        assert isinstance(got, slp.Matrix)
+        for arr in ("indptr", "indices", "data"):
+            np.testing.assert_array_equal(getattr(got.csr, arr),
+                                          getattr(want.csr, arr))
+    assert (tmp_path / f"p.{fmt}").read_bytes() == \
+        (tmp_path / f"j.{fmt}").read_bytes()
+
+
+def test_io_gml_symmetric_mtx_and_vectors(tmp_path):
+    from sublinear_tpu.formats import io as jio
+    from sublinear_tpu_torch.formats import io as pio
+
+    gml = tmp_path / "g.gml"
+    gml.write_text("graph [\n node [ id 4 ]\n node [ id 1 ]\n node [ id 9 ]\n"
+                   " edge [ source 4 target 1 value 2.5 ]\n"
+                   " edge [ source 1 target 9 ]\n]\n")
+    mtx = tmp_path / "s.mtx"
+    mtx.write_text("%%MatrixMarket matrix coordinate real symmetric\n% c\n"
+                   "3 3 3\n1 1 4.0\n2 1 -1.5\n3 3 2\n")
+    dense = tmp_path / "d.mtx"
+    dense.write_text("%%MatrixMarket matrix array real general\n2 2\n"
+                     "1\n2\n3\n4\n")
+    for path in (gml, mtx, dense):
+        got, want = pio.load_matrix(str(path)), jio.load_matrix(str(path))
+        np.testing.assert_array_equal(got.to_dense(), want.to_dense())
+    (tmp_path / "v.json").write_text('{"vector": [1, 2.5, -3]}')
+    (tmp_path / "v.csv").write_text("1,2.5,-3\n")
+    for name in ("v.json", "v.csv"):
+        path = str(tmp_path / name)
+        np.testing.assert_array_equal(pio.load_vector(path),
+                                      jio.load_vector(path))
+
+
+def test_lru_cache_matches_reference():
+    from sublinear_tpu.utils.lru import LRUCache as JaxLRU
+    from sublinear_tpu_torch.utils.lru import LRUCache
+
+    caches = (LRUCache(2), JaxLRU(2))
+    for c in caches:
+        c.put("a", 1)
+        c.put("b", 2)
+        assert c.get("a") == 1  # "a" is now the most recent
+        c.put("c", 3)           # evicts "b"
+    for c in caches:
+        assert "b" not in c and c.get("b", "miss") == "miss"
+        assert c.get("a") == 1 and c.get("c") == 3 and len(c) == 2
+        c.clear()
+        assert len(c) == 0
+
+
+def test_streaming_types_match_reference():
+    from sublinear_tpu import types as jt
+    from sublinear_tpu_torch import types as pt
+
+    for cls in ("SolutionChunk", "DeltaUpdate"):
+        assert ([f.name for f in dataclasses.fields(getattr(pt, cls))]
+                == [f.name for f in dataclasses.fields(getattr(jt, cls))])
+    kw = dict(iteration=3, residual=0.5, converged=True,
+              solution=np.arange(3.0), timestamp_ms=1.5,
+              verification={"verified": True}, rhs_version=2)
+    assert pt.SolutionChunk(**kw).to_dict() == jt.SolutionChunk(**kw).to_dict()

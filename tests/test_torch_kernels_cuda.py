@@ -766,3 +766,102 @@ def test_solve_batch_on_card(card):
         rel = (np.linalg.norm(a.csr.matvec(r.solution) - B[:, j])
                / np.linalg.norm(B[:, j]))
         assert r.converged and r.method == "neumann-batch" and rel < 1e-5
+
+
+# ------------------------------------------------------------ solver family
+
+def _strong_dd_card(n=2000, seed=6):
+    a = slp.generate("random-sparse", n, seed=seed, density=4.0 / n)
+    return slp.Matrix(a.csr.add_diagonal(2.0), prefer="xbar")
+
+
+@pytest.mark.parametrize("method", ["jacobi", "gauss-seidel", "sor"])
+def test_stationary_launches_csr_spmv(card, method):
+    """A sweep is one csr_spmv per color (1 for Jacobi) and each residual
+    check one more: k * colors + k / check_every + 1 launches."""
+    from sublinear_tpu_torch.solvers.jacobi import greedy_coloring
+
+    a = slp.generate("random-sparse", 20_000, seed=7, density=5e-4)
+    assert a._op_kind() == "csr"
+    b = slp.rhs(20_000, seed=7)
+    colors = 1 if method == "jacobi" else int(greedy_coloring(a).max()) + 1
+    before = K.LAUNCHES["csr_spmv"]
+    r = slp.solve(a, b, method=method, epsilon=1e-6, check_every=5)
+    k = r.iterations
+    assert r.converged and r.method == method and k % 5 == 0
+    assert K.LAUNCHES["csr_spmv"] - before == k * colors + k // 5 + 1
+    rel = np.linalg.norm(a.csr.matvec(r.solution) - b) / np.linalg.norm(b)
+    assert rel < 1e-5
+
+
+@pytest.mark.parametrize("strategy", ["importance", "uniform", "stratified",
+                                      "qmc"])
+def test_walks_on_card_rerun_bit_identical(card, strategy):
+    """One seed, two runs on the card: the same walkers bit for bit.  The
+    importance walkers are also unbiased: 99% of 2000 entries within 5
+    standard errors of the exact solution."""
+    from sublinear_tpu_torch.solvers import random_walk as RW
+
+    a = _strong_dd_card()
+    b = slp.rhs(2000, seed=6)
+    starts = np.repeat(np.arange(2000), 64)
+    opts = slp.SolverOptions(seed=3, sampling=strategy)
+    acc1, t1 = RW.run_walks(a, b, starts, opts, group=64)
+    acc2, t2 = RW.run_walks(a, b, starts, opts, group=64)
+    assert RW.sampling_tables(a).cdf.device.type == "cuda"
+    np.testing.assert_array_equal(acc1, acc2)
+    assert t1 == t2 > 0
+    if strategy == "importance":
+        x = np.linalg.solve(a.to_dense(), b)
+        acc = acc1.reshape(2000, 64)
+        se = np.sqrt(acc.var(axis=1, ddof=1) / 64)
+        assert np.mean(np.abs(acc.mean(axis=1) - x) <= 5 * se + 1e-6) >= 0.99
+
+
+def test_bmssp_on_card_equals_cpu(card):
+    from sublinear_tpu_torch.solvers import bmssp as BM
+
+    a = slp.generate("random-sparse", 20_000, seed=7, density=5e-4)
+    cpu = slp.Matrix(a.csr, device="cpu")
+    sources = [3, 77, 4000, 19_999]
+    vals = [1.0, 2.0, -1.0, 0.5]
+    dg, xg, sg = BM.shortest_paths(a, sources, vals)
+    dc, xc, sc = BM.shortest_paths(cpu, sources, vals)
+    assert sg == sc
+    np.testing.assert_array_equal(dg, dc)
+    np.testing.assert_array_equal(xg, xc)
+    bg = BM.batched_distances(a, [0, 5, 900])
+    bc = BM.batched_distances(cpu, [0, 5, 900])
+    np.testing.assert_array_equal(bg, bc)
+
+
+def test_streaming_panels_equal_matvec(card):
+    from sublinear_tpu_torch.formats.streaming import StreamingOperator
+
+    a = slp.generate("random-sparse", 50_000, seed=7, density=2e-4)
+    sop = StreamingOperator(a.csr, panel_budget=20_000, device=card)
+    assert sop.n_panels >= 8
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(50_000),
+                        dtype=torch.float32, device=card)
+    before = K.LAUNCHES["csr_spmv"]
+    got = sop.matvec_device(x)
+    assert K.LAUNCHES["csr_spmv"] - before == sop.n_panels
+    _close(got, a.op().matvec(x))
+    # a second product reuses the slot and gives the same bits
+    assert torch.equal(sop.matvec_device(x), got)
+
+
+def test_refined_device_residual_matches_host(card):
+    from sublinear_tpu_torch.solvers.refine import DeviceResidual, solve_refined
+
+    a = slp.generate("random-sparse", 20_000, seed=7, density=5e-4)
+    b = slp.rhs(20_000, seed=7)
+    x = np.random.default_rng(3).standard_normal(20_000)
+    r = DeviceResidual(a, b)(torch.as_tensor(x, device=card))
+    want = b - a.csr.matvec(x)
+    assert float(np.abs(r.cpu().numpy() - want).max()) <= 1e-12 * float(
+        np.abs(want).max())
+    out = solve_refined(a, b, slp.SolverOptions(epsilon=1e-12))
+    rel = np.linalg.norm(a.csr.matvec(out.solution) - b) / np.linalg.norm(b)
+    assert out.converged and rel <= 1e-12
+    assert abs(out.residual / np.linalg.norm(b) - rel) <= 1e-12

@@ -88,9 +88,29 @@ def test_adaptive_runs_neumann():
 
 
 def test_unported_method_names_the_roadmap():
+    """Every method is ported now: each Method dispatches to its solver and
+    none raises NotImplementedError (the test keeps its name from when the
+    unported methods named their ROADMAP item)."""
     p = slp.generate("random-sparse", 200, seed=1, density=0.05)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        slp.solve(p, slp.rhs(200, seed=1), method="jacobi")
+    b = slp.rhs(200, seed=1)
+    for m in slp.Method:
+        r = slp.solve(p, b, method=m.value, epsilon=1e-3, num_walks=64,
+                      raise_on_fail=False)
+        assert r.solution.shape == (200,), m
+
+
+@pytest.mark.parametrize("method", [m.value for m in slp.Method])
+def test_every_method_dispatches(method):
+    """Each Method returns the method string the JAX package returns for it
+    on the same system."""
+    a = slt.generate("random-sparse", 200, seed=1, density=0.05)
+    p = slp.generate("random-sparse", 200, seed=1, density=0.05)
+    b = slt.rhs(200, seed=1)
+    kw = dict(epsilon=1e-3, num_walks=64, raise_on_fail=False)
+    rj = slt.solve(a, b, method=method, **kw)
+    rp = slp.solve(p, b, method=method, **kw)
+    assert rp.method == rj.method
+    assert np.all(np.isfinite(rp.solution)) and rp.solution.shape == (200,)
 
 
 def test_timeout_path_converges():
