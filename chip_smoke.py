@@ -95,7 +95,32 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
      chunk_iters=10) on the SPD matrix with one DeltaUpdate queued after the
      first chunk, and solve_streaming on the n=1M matrix in >= 8 row panels,
      the panel product held to CsrOperator.matvec;
- 24. the figures of csr_spmv (phases 3 and 6) and csr_spmm (phase 16, f32)
+ 24. the graph layer on a web-scale digraph (1M nodes, 5M uniform edges
+     from default_rng(7), the size of SNAP's web-Google): pagerank (damping
+     0.85, epsilon 1e-6) and personalized_pagerank from 20 nodes, each held
+     to an f64 scipy power iteration within the bound of its residual, with
+     csr_spmv launches 1 + 6 per 5-step block and the host set-up (P^T,
+     out-degrees, pack_csr) timed apart from the loop; degroot_consensus
+     (100 csr_spmv launches), friedkin_johnsen (neumann_step; host f64
+     residual of I - (1-s) W) and influence_propagation;
+ 25. the queries on the headline matrix: estimate_functional (t from
+     default_rng(11)) within 1e-3 max(|t.x|, 1) + its error bound of t.x,
+     estimate_entry by backward push and by Neumann (the inverse entry) at
+     four entries, each within its half-width and the 1e-6 solve's bound,
+     estimate_entries by random walk on 10,000 rows x 64 walks (99% within
+     5 standard errors), and the temporal lead at n=1000 (DIA route);
+ 26. on the connected undirected graph (a ring of 100k nodes plus 400k
+     uniform edges, as graph.flow.weighted_laplacian builds it):
+     effective_resistance (cg_step; host f64 residual), electrical_network
+     and min_cost_flow at epsilon 1e-8 (their converged flags; host f64
+     residual below F32_CG_LEVEL), closeness on the first 256 nodes equal
+     to the BFS levels bit for bit, betweenness from 8 sources against the
+     host Brandes at rtol 1e-5 and timed at 256, detect_communities;
+ 27. the utilities on the card: record_solve and ProfileLog of phase 4's
+     solve (backend "cuda"), memory_info, profile_memory around a PageRank
+     of phase 24's graph (peak device bytes), resume from a saved
+     checkpoint of phase 4's solve and update_rhs with a 20-entry delta;
+ 28. the figures of csr_spmv (phases 3 and 6) and csr_spmm (phase 16, f32)
      with their device times, the device times of the two chain kernels at
      n=100k (neumann_step per step of phase 5's chain, cg_step per step of
      phase 8's), and the device time and device launches per call of the
@@ -104,8 +129,10 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
      because a torch.profiler window slows the host-bound solves that
      follow it in the same process (BiCGSTAB, CG on the ELL route).
 
-Phases 19-23 each set the kernels' launch counts to 0 before they drive
-their path and print the counts after it.
+Phases 19-27 each set the kernels' launch counts to 0 before they drive
+their path and print the counts after it; the kernels line's launches add
+those of phases 24-27 to the main path's.  Phases 24-27 print the card's
+name and power limit in their headers.
 
 Beside each kernel's time the script computes its bound (the least time the
 card could take: the bytes the function must move at 3.35 TB/s, or its
@@ -115,7 +142,7 @@ function (a CUDA torch.sparse_csr_tensor of A times x, or times X with
 torch.sparse.mm) as a yardstick the port never calls.  The figures of those
 two kernels: the time per back-to-back call (CUDA events, host work
 included), the device time alone (torch.profiler over a window of
-back-to-back calls, phase 24), both also for the yardstick, the bound and
+back-to-back calls, phase 28), both also for the yardstick, the bound and
 its share,
 the bytes per second achieved (the bound's bytes over the device time) and
 the L2 traffic of the gathers, computed from the shapes (a 32-byte sector
@@ -167,6 +194,19 @@ DIJKSTRA_RTOL = 1e-5
 N_PREPARED = 10
 PREPARED_RTOL = 1e-6
 MIN_PANELS = 8
+N_WEB, E_WEB = 1_000_000, 5_000_000  # the web-scale digraph (web-Google size)
+N_UND, E_UND = 100_000, 400_000      # the connected undirected graph
+DAMPING = 0.85
+N_PPR_SEEDS = 20
+DEGROOT_STEPS = 100
+FJ_SUSCEPTIBILITY = 0.5
+N_ENTRY_ROWS = 4        # estimate_entry rows of each deterministic method
+N_CLOSENESS = 256       # closeness on the first 256 nodes (one chunk)
+N_BC_CHECK, N_BC_TIMED = 8, 256  # betweenness sources: held / timed
+BC_RTOL = 1e-5
+F32_CG_LEVEL = 1e-4     # the true relative residual an f32 CG reaches on the
+#                         grounded flow systems (its recurrence runs lower)
+N_DELTA = 20            # entries of update_rhs's delta
 DEVICE_REPS = 50        # back-to-back calls in a profiled window
 SECTOR_BYTES = 32       # what L2 moves for one gathered 4-byte x element
 # f32 operations per stored entry and column of each csr_spmm product
@@ -468,7 +508,7 @@ def spmv_figures(torch, K, A, op, x, label, reps):
     torch.sparse_csr_tensor of the full A, a yardstick the port never
     calls), after raising unless the yardstick agrees with the kernel and,
     on rows of at most SPMV_LONG_ROW entries, csr_spmv equals a one-column
-    csr_spmm bit for bit.  Returns the ``Figures`` phase 24 prints."""
+    csr_spmm bit for bit.  Returns the ``Figures`` phase 28 prints."""
     n, nnz = op.n_pad, op.indices.numel()
     S = sparse_csr(torch, A, x.device)
     kern, lib = lambda: K.csr_spmv(op, x, op.diag), lambda: torch.mv(S, x)
@@ -913,6 +953,482 @@ def solver_family(torch, slt, K, A, b, S, A_big, b_big):
           flush=True)
 
 
+def add_launches(launches, K):
+    """Add the CSR kernels' counts of the phase just run to ``launches``,
+    the kernels line's main-path totals."""
+    for name in ("csr_spmv", "neumann_step", "cg_step"):
+        launches[name] += K.LAUNCHES[name]
+
+
+def web_graph(slt):
+    """The web-scale digraph: N_WEB nodes, E_WEB uniform directed edges from
+    default_rng(SEED), self-loops dropped, duplicates summed, weights 1."""
+    rng = np.random.default_rng(SEED)
+    r, c = rng.integers(0, N_WEB, E_WEB), rng.integers(0, N_WEB, E_WEB)
+    keep = r != c
+    return slt.Matrix.from_coo(r[keep], c[keep], np.ones(int(keep.sum())),
+                               (N_WEB, N_WEB))
+
+
+def pagerank_oracle(csr, v, alpha=DAMPING):
+    """tests/test_graph.py's power iteration in f64 with scipy.sparse, run
+    until the l1 change is below 1e-15; returns (x*, P^T, dangling mask)."""
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix((csr.data, csr.indices, csr.indptr), shape=csr.shape)
+    out = np.asarray(A.sum(axis=1)).ravel()
+    dang = out == 0
+    PT = (sp.diags(np.where(dang, 0.0, 1.0 / np.where(dang, 1.0, out))) @ A
+          ).T.tocsr()
+    x = v.copy()
+    for _ in range(2000):
+        x_new = (1 - alpha) * v + alpha * (PT @ x + x[dang].sum() * v)
+        done = np.abs(x_new - x).sum() < 1e-15
+        x = x_new
+        if done:
+            break
+    return x / x.sum(), PT, dang
+
+
+def check_pagerank(r, v, oracle, label):
+    """Raise unless the scores sum to 1 within 1e-5 and lie within the bound
+    of the reported residual of the f64 oracle: ||x - x*||_2 <= (res + f32
+    rounding) / (1 - alpha), with 16 f32 roundings of ||x*||_2 per step, and
+    in l1 (P^T column-stochastic, so exact) by the host f64 residual of
+    the returned scores."""
+    x_star, PT, dang = oracle
+    x = r.scores
+    err2 = float(np.linalg.norm(x - x_star))
+    rounding = 16 * float(np.finfo(np.float32).eps) * np.linalg.norm(x_star)
+    bound2 = (r.residual + rounding) / (1 - DAMPING)
+    step = (1 - DAMPING) * v + DAMPING * (PT @ x + x[dang].sum() * v)
+    err1 = float(np.abs(x - x_star).sum())
+    bound1 = float(np.abs(step - x).sum()) / (1 - DAMPING) + 1e-12
+    total = float(x.sum())
+    if not (r.converged and np.all(np.isfinite(x)) and abs(total - 1) < 1e-5
+            and err2 <= bound2 and err1 <= bound1):
+        raise RuntimeError(f"{label}: converged={r.converged} sum {total} "
+                           f"l2 err {err2} > {bound2} or l1 err {err1} > "
+                           f"{bound1}")
+    return (f"iterations={r.iterations} residual={r.residual:.3e} "
+            f"sum {total:.9f}; from the f64 oracle l2 {err2:.3e} (bound "
+            f"{bound2:.3e}), l1 {err1:.3e} (bound {bound1:.3e})")
+
+
+def graph_phase(torch, slt, K, launches, smi):
+    """Phase 24: PageRank and the social dynamics on the web-scale graph.
+    Returns the graph and its PageRank for phase 27."""
+    from sublinear_tpu_torch import graph as G
+    from sublinear_tpu_torch.graph.pagerank import pagerank_inputs, pagerank_run
+
+    phase(f"24 PageRank at n={N_WEB} ({E_WEB} uniform edges; {smi})")
+    t0 = time.perf_counter()
+    W = web_graph(slt)
+    out_deg = W.csr.row_nnz()
+    print(f"graph: {W.nnz} edges, {int((out_deg == 0).sum())} dangling nodes, "
+          f"built in {time.perf_counter() - t0:.2f} host s", flush=True)
+    reset(K)
+    r = G.pagerank(W, damping=DAMPING, epsilon=1e-6)
+    counts = counted(K)
+    add_launches(launches, K)
+    blocks = r.iterations // 5
+    if counts != {"csr_spmv": 1 + 6 * blocks}:
+        raise RuntimeError(f"pagerank: launches {counts}, csr_spmv expected "
+                           f"1 + 6 * {blocks}")
+    v = np.full(N_WEB, 1.0 / N_WEB)
+    t0 = time.perf_counter()
+    oracle = pagerank_oracle(W.csr, v)
+    oracle_s = time.perf_counter() - t0
+    print(f"pagerank: {check_pagerank(r, v, oracle, 'pagerank')}; launches "
+          f"{counts} (1 + 6 per 5-step block); oracle {oracle_s:.2f} host s",
+          flush=True)
+    # the host set-up (P^T, out-degrees, pack_csr) apart from the loop
+    setup = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        opT, v_t, dang = pagerank_inputs(W)
+        torch.cuda.synchronize()
+        setup.append(time.perf_counter() - t0)
+    if type(opT).__name__ != "CsrOperator":
+        raise RuntimeError(f"P^T takes {type(opT).__name__}, not the csr route")
+    loop = warm_ms(torch, lambda: pagerank_run(opT, v_t, dang, DAMPING, 1e-6,
+                                               1000), 3)
+    whole = warm_ms(torch, lambda: G.pagerank(W), 2)
+    print(f"pagerank host set-up s {' '.join(f'{t:.3f}' for t in setup)}; "
+          f"iteration loop warm ms {' '.join(f'{t:.3f}' for t in loop)}; "
+          f"whole call ms {' '.join(f'{t:.1f}' for t in whole)}", flush=True)
+
+    seeds = np.random.default_rng(0).choice(N_WEB, N_PPR_SEEDS, replace=False)
+    reset(K)
+    rp = G.personalized_pagerank(W, seeds)
+    counts = counted(K)
+    add_launches(launches, K)
+    vp = np.zeros(N_WEB)
+    vp[seeds] = 1.0 / N_PPR_SEEDS
+    if counts != {"csr_spmv": 1 + 6 * (rp.iterations // 5)}:
+        raise RuntimeError(f"personalized_pagerank: launches {counts}")
+    print(f"personalized_pagerank ({N_PPR_SEEDS} seeds): "
+          f"{check_pagerank(rp, vp, pagerank_oracle(W.csr, vp), 'ppr')}; "
+          f"launches {counts}", flush=True)
+
+    x0 = np.random.default_rng(1).uniform(-1, 1, N_WEB)
+    reset(K)
+    t0 = time.perf_counter()
+    dg = G.degroot_consensus(W, x0, steps=DEGROOT_STEPS)
+    dg_s = time.perf_counter() - t0
+    counts = counted(K)
+    add_launches(launches, K)
+    if counts != {"csr_spmv": DEGROOT_STEPS} or not np.all(
+            np.isfinite(dg["opinions"])):
+        raise RuntimeError(f"degroot_consensus: launches {counts}")
+    print(f"degroot_consensus {DEGROOT_STEPS} steps: consensus "
+          f"{dg['consensusValue']:.6f} spread {dg['spread']:.4f}, launches "
+          f"{counts}, {dg_s * 1e3:.1f} ms (row_normalize and pack included)",
+          flush=True)
+
+    reset(K)
+    t0 = time.perf_counter()
+    fj = G.friedkin_johnsen(W, x0, susceptibility=FJ_SUSCEPTIBILITY)
+    fj_s = time.perf_counter() - t0
+    counts = counted(K)
+    add_launches(launches, K)
+    Wn = G.social.row_normalize(W)
+    x = np.asarray(fj["opinions"])
+    sys_x = x - (1 - FJ_SUSCEPTIBILITY) * Wn.csr.matvec(x)
+    rhs_fj = FJ_SUSCEPTIBILITY * x0
+    rel = float(np.linalg.norm(sys_x - rhs_fj) / np.linalg.norm(rhs_fj))
+    if not (fj["convergenceInfo"]["converged"] and rel < SOLVE_RTOL
+            and counts.get("neumann_step")):
+        raise RuntimeError(f"friedkin_johnsen: {fj['convergenceInfo']} host "
+                           f"rel residual {rel} launches {counts}")
+    print(f"friedkin_johnsen s={FJ_SUSCEPTIBILITY}: {fj['convergenceInfo']} "
+          f"host f64 rel residual of I - (1-s) W {rel:.3e}, polarization "
+          f"{fj['polarization']:.4f}, launches {counts}, {fj_s:.2f} s "
+          f"(build and analysis included)", flush=True)
+
+    reset(K)
+    inf = G.influence_propagation(W, seeds.tolist())
+    counts = counted(K)
+    add_launches(launches, K)
+    scores = np.asarray(inf["influenceScores"])
+    if not (inf["converged"] and np.allclose(scores, rp.scores, rtol=0,
+                                             atol=1e-9)
+            and counts.get("csr_spmv")):
+        raise RuntimeError(f"influence_propagation: converged "
+                           f"{inf['converged']} launches {counts}")
+    print(f"influence_propagation: seed mass {inf['totalSeedInfluence']:.4f}"
+          f", top {inf['topInfluenced'][0]}, launches {counts}", flush=True)
+    return W, r
+
+
+def query_phase(torch, slt, K, A, b, r_main, launches, smi):
+    """Phase 25: the queries on the headline matrix and the temporal lead at
+    n=1000 (DIA route)."""
+    from sublinear_tpu_torch import queries as Q
+    from sublinear_tpu_torch.solvers import random_walk as RW
+
+    n = A.shape[0]
+    phase(f"25 queries on the headline matrix n={n} ({smi})")
+    x, x_err = r_main.solution, r_main.error_bounds.upper_bound
+    t = np.random.default_rng(11).standard_normal(n)
+    reset(K)
+    out = Q.estimate_functional(A, b, t)
+    counts = counted(K)
+    add_launches(launches, K)
+    exact = float(t @ x)
+    gap = abs(out["estimate"] - exact)
+    allowed = 1e-3 * max(abs(exact), 1.0) + out["errorBound"]
+    if not (gap <= allowed and counts.get("csr_spmv")):
+        raise RuntimeError(f"estimate_functional: |{out['estimate']} - "
+                           f"{exact}| = {gap} > {allowed}; launches {counts}")
+    warm = warm_ms(torch, lambda: Q.estimate_functional(A, b, t), 3)
+    print(f"estimate_functional: {out['estimate']:.6f} against t.x "
+          f"{exact:.6f} (|diff| {gap:.3e} <= {allowed:.3e}), sweeps "
+          f"{out['sweeps']}, residuals {out['forwardResidual']:.3e} / "
+          f"{out['backwardResidual']:.3e}, launches {counts}; warm ms "
+          f"{' '.join(f'{w:.2f}' for w in warm)}", flush=True)
+
+    rows = [0, 1, n // 2, n - 1]
+    cols = [0, 7, n // 3, n - 1]
+    for method in ("backward-push", "neumann"):
+        reset(K)
+        worst = 0.0
+        for row, col in zip(rows, cols):
+            est = Q.estimate_entry(A, b, row, col, method=method)
+            if method == "neumann":
+                e = np.zeros(n)
+                e[col] = 1.0
+                ref = slt.solve(A, e, method="neumann", epsilon=1e-6)
+                want, err = ref.solution[row], ref.error_bounds.upper_bound
+            else:
+                want, err = x[row], x_err
+            gap = abs(est.estimate - want)
+            if not gap <= est.confidence + err + 1e-7:
+                raise RuntimeError(f"estimate_entry {method} ({row}, {col}): "
+                                   f"{est.estimate} vs {want}, |diff| {gap} "
+                                   f"> {est.confidence} + {err}")
+            worst = max(worst, gap)
+        counts = counted(K)
+        add_launches(launches, K)
+        if not counts.get("csr_spmv") or (method == "neumann"
+                                          and not counts.get("neumann_step")):
+            raise RuntimeError(f"estimate_entry {method}: launches {counts}")
+        warm = warm_ms(torch, lambda: Q.estimate_entry(A, b, rows[1], cols[1],
+                                                       method=method), 3)
+        print(f"estimate_entry {method} at rows {rows} (columns {cols}): "
+              f"max |diff| from the 1e-6 solve {worst:.3e} (within each "
+              f"estimate's half-width + the solve's bound), launches over "
+              f"{len(rows)} entries {counts}; warm ms per entry "
+              f"{' '.join(f'{w:.3f}' for w in warm)}", flush=True)
+
+    sel = np.random.default_rng(11).integers(0, n, N_WALK_ROWS)
+    opts = slt.SolverOptions(epsilon=1e-3, num_walks=WALKS)
+    reset(K)
+    est = Q.estimate_entries(A, b, sel, options=opts)
+    counts = counted(K)
+    est2, var, steps = RW.walk_estimate(A, b, sel, opts)
+    se = np.sqrt(np.maximum(var, 0.0) / WALKS)
+    share = float(np.mean(np.abs(est - x[sel]) <= WALK_SE * se + 1e-6))
+    if not (np.array_equal(est, est2) and share >= WALK_SHARE):
+        raise RuntimeError(f"estimate_entries: {share:.4f} within {WALK_SE} "
+                           f"SE; equal to walk_estimate "
+                           f"{np.array_equal(est, est2)}")
+    warm = warm_ms(torch, lambda: Q.estimate_entries(A, b, sel, options=opts),
+                   3)
+    print(f"estimate_entries (random walk, {N_WALK_ROWS} rows x {WALKS} "
+          f"walks): {share:.4f} within {WALK_SE} SE of the exact solve, "
+          f"{steps} steps, launches {counts}; warm ms "
+          f"{' '.join(f'{w:.3f}' for w in warm)}, us per entry "
+          f"{' '.join(f'{w / N_WALK_ROWS * 1e3:.3f}' for w in warm)}",
+          flush=True)
+
+    T = slt.Matrix(slt.generate("tridiagonal", 1000).csr.add_diagonal(2.0))
+    if T._op_kind() != "dia":
+        raise RuntimeError(f"the temporal system routes to {T._op_kind()!r}")
+    b_t = slt.rhs(1000, seed=SEED)
+    reset(K)
+    pred = Q.predict_with_temporal_advantage(T, b_t)
+    val = Q.validate_temporal_advantage(1000)
+    counts = counted(K)
+    rel = host_residual(T, np.asarray(pred["solution"]), b_t)
+    if not (pred["converged"] and val["converged"] and rel < SOLVE_RTOL
+            and not counts):
+        raise RuntimeError(f"temporal: {pred['converged']} {val} rel {rel} "
+                           f"launches {counts}")
+    shown = {k: v for k, v in pred.items() if k != "solution"}
+    print(f"predict_with_temporal_advantage n=1000 (DIA): {shown}; host f64 "
+          f"rel residual {rel:.3e}", flush=True)
+    print(f"validate_temporal_advantage(1000): {val}", flush=True)
+
+
+def flow_phase(torch, slt, K, launches, smi):
+    """Phase 26: resistance, flows, closeness, betweenness and communities
+    on the connected undirected graph."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import shortest_path
+
+    from sublinear_tpu_torch import graph as G
+    from sublinear_tpu_torch.graph import centrality as C
+
+    n = N_UND
+    phase(f"26 flows, resistance and centrality on the undirected graph "
+          f"n={n} ({smi})")
+    rng = np.random.default_rng(SEED)
+    i = np.arange(n)
+    u = np.r_[i, rng.integers(0, n, E_UND)]
+    w = np.r_[(i + 1) % n, rng.integers(0, n, E_UND)]
+    edges = list(zip(u.tolist(), w.tolist()))
+    ones = np.ones(len(edges))
+    t0 = time.perf_counter()
+    L = G.weighted_laplacian(n, edges, ones)
+    print(f"Laplacian: {len(edges)} edges, nnz {L.nnz}, route "
+          f"{L._op_kind()}, built in {time.perf_counter() - t0:.2f} host s",
+          flush=True)
+
+    reset(K)
+    er = G.effective_resistance(L, 0, n // 2)
+    counts = counted(K)
+    add_launches(launches, K)
+    Lg = G.grounded_laplacian(L)
+    e = np.zeros(n - 1)
+    e[0] = 1.0
+    e[n // 2] = -1.0
+    rel = host_residual(Lg, np.asarray(er["voltage"])[: n - 1], e)
+    if not (rel < SOLVE_RTOL and counts.get("cg_step")
+            and er["convergenceInfo"]["converged"]):
+        raise RuntimeError(f"effective_resistance: {er['convergenceInfo']} "
+                           f"host rel residual {rel} launches {counts}")
+    warm = warm_ms(torch, lambda: G.effective_resistance(L, 0, n // 2), 2)
+    print(f"effective_resistance(0, {n // 2}) = {er['effectiveResistance']:.6f}"
+          f": {er['convergenceInfo']}, host f64 rel residual {rel:.3e}, "
+          f"launches {counts}; warm ms {' '.join(f'{t:.1f}' for t in warm)}",
+          flush=True)
+
+    r_, c_, v_ = L.csr.to_coo()
+    flows = (
+        ("electrical_network", lambda: G.electrical_network(
+            n, edges, ones, {0: 1.0, n - 1: 0.0}), "voltages",
+         ([0, n - 1], 1e6), {0: 1e6}),
+        ("min_cost_flow", lambda: G.min_cost_flow(
+            n, edges, ones, {0: 1.0, n // 2: -1.0}), "potentials",
+         ([0], 1.0), {0: 1.0, n // 2: -1.0}))
+    for name, call, key, (diag_nodes, big), rhs_at in flows:
+        reset(K)
+        t0 = time.perf_counter()
+        out = call()
+        secs = time.perf_counter() - t0
+        counts = counted(K)
+        add_launches(launches, K)
+        M = slt.Matrix.from_coo(np.r_[r_, diag_nodes], np.r_[c_, diag_nodes],
+                                np.r_[v_, np.full(len(diag_nodes), big)],
+                                (n, n))
+        rhs_f = np.zeros(n)
+        for node, val in rhs_at.items():
+            rhs_f[node] = val
+        rel = host_residual(M, np.asarray(out[key]), rhs_f)
+        info = out["convergenceInfo"]
+        if not (rel < F32_CG_LEVEL and counts.get("cg_step")
+                and np.all(np.isfinite(out[key]))):
+            raise RuntimeError(f"{name}: {info} host rel residual {rel} "
+                               f"launches {counts}")
+        print(f"{name}: {info} (epsilon 1e-8), host f64 rel residual "
+              f"{rel:.3e} (< {F32_CG_LEVEL}), launches {counts}, {secs:.2f} "
+              f"s with the Python loops over the edges", flush=True)
+
+    Au = C._unit_graph(L)
+    S = sp.csr_matrix((Au.csr.data, Au.csr.indices, Au.csr.indptr),
+                      shape=Au.shape)
+    nodes = np.arange(N_CLOSENESS)
+    reset(K)
+    close = np.asarray(G.closeness_centrality(L, nodes)["closenessVector"])
+    t0 = time.perf_counter()
+    levels = shortest_path(S, method="D", unweighted=True, indices=nodes)
+    bfs_s = time.perf_counter() - t0
+    for j in (0, N_CLOSENESS - 1):
+        if not np.array_equal(levels[j], dijkstra(Au.csr, [nodes[j]])):
+            raise RuntimeError(f"scipy BFS levels of source {j} differ from "
+                               f"the dijkstra helper")
+    reach = np.isfinite(levels)
+    total = np.where(reach, levels, 0.0).sum(axis=1)
+    cnt = reach.sum(axis=1) - 1.0
+    want = np.where(total > 0, (cnt / (n - 1)) * (cnt / np.where(
+        total > 0, total, 1.0)), 0.0)
+    if not np.array_equal(close[nodes], want) or np.any(close[N_CLOSENESS:]):
+        raise RuntimeError(f"closeness differs from the BFS levels: max "
+                           f"{np.abs(close[nodes] - want).max()}")
+    warm = warm_ms(torch, lambda: G.closeness_centrality(L, nodes), 2)
+    print(f"closeness_centrality on {N_CLOSENESS} nodes: equal to the BFS "
+          f"levels bit for bit (two rows held to the dijkstra helper; scipy "
+          f"BFS {bfs_s:.2f} host s), max {close.max():.5f}; warm ms "
+          f"{' '.join(f'{t:.1f}' for t in warm)}", flush=True)
+
+    bc = np.asarray(G.betweenness_centrality(
+        L, num_samples=N_BC_CHECK, backend="device")["betweennessVector"])
+    sources = np.random.default_rng(0).choice(n, N_BC_CHECK, replace=False)
+    t0 = time.perf_counter()
+    exact = C._betweenness_host(L, sources, n / N_BC_CHECK)
+    host_s = time.perf_counter() - t0
+    diff = np.abs(bc - exact)
+    if not np.all(diff <= BC_RTOL * np.abs(exact)
+                  + BC_RTOL * np.abs(exact).max()):
+        raise RuntimeError(f"betweenness: max |device - host| "
+                           f"{diff.max()} (max {np.abs(exact).max()})")
+    print(f"betweenness_centrality {N_BC_CHECK} sources (device) against "
+          f"_betweenness_host: max rel diff "
+          f"{float(diff.max() / np.abs(exact).max()):.3e}, host oracle "
+          f"{host_s:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    g = C._unit_graph(L)
+    C.in_edge_tables(g)
+    C.in_edge_tables(g.transpose())
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    for samples in (N_BC_CHECK, N_BC_TIMED):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        warm = warm_ms(torch, lambda: G.betweenness_centrality(
+            L, num_samples=samples, backend="device"), 2)
+        print(f"betweenness_centrality {samples} sources (device, one chunk)"
+              f": warm ms {' '.join(f'{t:.1f}' for t in warm)} (each builds "
+              f"the unit graph and its in- and out-edge tables on the host: "
+              f"{tables_s:.2f} s alone); peak device bytes above the "
+              f"{held} held before {torch.cuda.max_memory_allocated() - held}",
+              flush=True)
+
+    t0 = time.perf_counter()
+    dc = G.detect_communities(Au)
+    dc_s = time.perf_counter() - t0
+    q = G.modularity(Au, np.asarray(dc["assignments"]))
+    if not (q == dc["modularity"] and len(dc["assignments"]) == n):
+        raise RuntimeError(f"detect_communities: {dc['quality']}")
+    print(f"detect_communities (host): {dc['quality']}, modularity "
+          f"{q:.3e}, {dc_s:.2f} host s", flush=True)
+
+
+def utility_phase(torch, slt, K, A, b, r_main, W, launches, smi):
+    """Phase 27: the utilities reading the card."""
+    import tempfile
+
+    from sublinear_tpu_torch import graph as G
+    from sublinear_tpu_torch.types import DeltaUpdate
+    from sublinear_tpu_torch.utils import (
+        ProfileLog, SolverCheckpoint, checkpoint_of, resume, update_rhs)
+    from sublinear_tpu_torch.utils.memory_profiler import profile_memory
+    from sublinear_tpu_torch.utils.profiling import memory_info
+
+    phase(f"27 utilities ({smi})")
+    log = ProfileLog()
+    rec = log.add(A, r_main)
+    if not (rec.backend == "cuda" and rec.chips == torch.cuda.device_count()
+            and rec.iterations == r_main.iterations and log.records == [rec]):
+        raise RuntimeError(f"record_solve: {rec}")
+    print(f"record_solve on phase 4's solve: {rec.to_json()}", flush=True)
+    info = memory_info()
+    if not (info["devices"][0]["platform"] == "cuda"
+            and info["devices"][0]["bytesInUse"] > 0):
+        raise RuntimeError(f"memory_info: {info}")
+    print(f"memory_info: {info}", flush=True)
+
+    reset(K)
+    with profile_memory("pagerank", n=W.shape[0], nnz=W.nnz) as prof:
+        pr = G.pagerank(W)
+    add_launches(launches, K)
+    if not (prof.backend == "cuda" and prof.device_peak_bytes > 0
+            and pr.converged):
+        raise RuntimeError(f"profile_memory: {prof}")
+    print(f"profile_memory around PageRank n={W.shape[0]}: {prof.to_dict()}",
+          flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "ckpt.npz")
+        checkpoint_of(r_main, b).save(path)
+        ckpt = SolverCheckpoint.load(path)
+    reset(K)
+    res = resume(A, ckpt)
+    add_launches(launches, K)
+    own = res.iterations - ckpt.iterations
+    rel = host_residual(A, res.solution, b)
+    if not (res.converged and own <= r_main.iterations and rel < SOLVE_RTOL):
+        raise RuntimeError(f"resume: converged={res.converged} own "
+                           f"iterations {own} host rel residual {rel}")
+    print(f"resume from a saved checkpoint of phase 4's solve: {res.method}, "
+          f"{own} more iterations (first solve {r_main.iterations}), host f64 "
+          f"rel residual {rel:.3e}", flush=True)
+    rng = np.random.default_rng(3)
+    delta = DeltaUpdate(indices=rng.choice(A.shape[0], N_DELTA, replace=False),
+                        values=rng.uniform(-0.5, 0.5, N_DELTA))
+    reset(K)
+    r2, b_new = update_rhs(A, r_main, delta, b)
+    add_launches(launches, K)
+    rel = host_residual(A, r2.solution, b_new)
+    if not (r2.converged and rel < SOLVE_RTOL):
+        raise RuntimeError(f"update_rhs: converged={r2.converged} rel {rel}")
+    print(f"update_rhs with a {N_DELTA}-entry delta: {r2.method}, "
+          f"{r2.iterations - r_main.iterations} more iterations, host f64 "
+          f"rel residual to the new b {rel:.3e}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", type=Path, default=None,
@@ -991,7 +1507,7 @@ def main() -> int:
                 raise RuntimeError(f"{name} {label} disagrees with its plain "
                                    f"version: {rel} > {KERNEL_RTOL}")
     check_chain_products(torch, K, op, x, f"n={N_MAIN}")
-    # the figures phase 24 prints, by kernel, the first of each on the path
+    # the figures phase 28 prints, by kernel, the first of each on the path
     late = {"csr_spmv": [spmv_figures(torch, K, A, op, x, f"n={N_MAIN}",
                                       200)]}
     main_fig = late["csr_spmv"][0]
@@ -1006,7 +1522,8 @@ def main() -> int:
 
     phase(f"4 main path: solve(method='neumann') at n={N_MAIN}")
     reset(K)
-    r, rel = check_solve(slt, A, b, f"n={N_MAIN}")
+    r_main, rel = check_solve(slt, A, b, f"n={N_MAIN}")
+    r = r_main
     launches = dict(K.LAUNCHES)
     if not (launches["csr_spmv"] and launches["neumann_step"]):
         raise RuntimeError(f"a kernel of the main path never launched: "
@@ -1310,7 +1827,7 @@ def main() -> int:
     cases += [(name, n, 1, 0)
               for name in ("dense_jacobi_fused", "dense_power_fused")
               for n in DENSE_SIZES + (N_DENSE_GLOBAL,)]
-    dense_fns = {}  # the calls phase 24 profiles, at the timed shapes
+    dense_fns = {}  # the calls phase 28 profiles, at the timed shapes
     for name, n, B, iters in cases:
         kern, plain = dense_case(name, n, B, iters)
         got, want = kern(), plain()
@@ -1545,8 +2062,13 @@ def main() -> int:
           f"{' '.join(f'{t:.4f}' for t in warm)}", flush=True)
 
     solver_family(torch, slt, K, A, b, S, A_big, b_big)
+    W, _ = graph_phase(torch, slt, K, launches, smi)
+    query_phase(torch, slt, K, A, b, r_main, launches, smi)
+    flow_phase(torch, slt, K, launches, smi)
+    utility_phase(torch, slt, K, A, b, r_main, W, launches, smi)
+    del W
 
-    phase("24 device times of the sparse products, the chains and the dense "
+    phase("28 device times of the sparse products, the chains and the dense "
           "kernels (torch.profiler)")
     dev_ms = {name: [fig.report(torch) for fig in figs][0]
               for name, figs in late.items()}

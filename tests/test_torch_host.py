@@ -187,6 +187,27 @@ def test_port_imports_no_jax():
         assert not bad, f"{path.name} imports {bad}"
 
 
+LAYER_MODULES = [f"queries/{m}.py" for m in ("__init__", "estimate", "temporal")]
+LAYER_MODULES += [f"graph/{m}.py" for m in (
+    "__init__", "pagerank", "resistance", "social", "flow", "community",
+    "centrality")]
+LAYER_MODULES += [f"utils/{m}.py" for m in (
+    "__init__", "checkpoint", "complexity", "convergence", "profiling",
+    "memory_profiler")]
+
+
+@pytest.mark.parametrize("rel", LAYER_MODULES)
+def test_layer_module_imports_no_jax(rel):
+    """Each module of the query, graph and utility layers exists beside its
+    JAX-package counterpart and imports neither jax nor the JAX package."""
+    root = Path(slp.__file__).resolve().parent
+    path = root / rel
+    assert (Path(slt.__file__).resolve().parent / rel).is_file()
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported_modules(tree) if _forbidden(m)]
+    assert not bad, f"{rel} imports {bad}"
+
+
 def test_device_never_takes_the_cpu_by_itself(monkeypatch):
     """With no argument, no SLT_TORCH_DEVICE and no card, resolving the
     device raises and names both ways to ask for the CPU."""

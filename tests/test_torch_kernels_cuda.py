@@ -865,3 +865,45 @@ def test_refined_device_residual_matches_host(card):
     rel = np.linalg.norm(a.csr.matvec(out.solution) - b) / np.linalg.norm(b)
     assert out.converged and rel <= 1e-12
     assert abs(out.residual / np.linalg.norm(b) - rel) <= 1e-12
+
+
+# ------------------------------------------------------------ graph layer
+
+def _web_graph(n=20_000, out=5, seed=3, device=None):
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(n), out)
+    c = rng.integers(0, n, out * n)
+    keep = r != c
+    return slp.Matrix.from_coo(r[keep], c[keep], np.ones(int(keep.sum())),
+                               (n, n), device=device)
+
+
+@pytest.mark.parametrize("personalized", [False, True])
+def test_pagerank_on_card_equals_cpu(card, personalized):
+    from sublinear_tpu_torch.graph import pagerank, personalized_pagerank
+
+    g, cpu = _web_graph(device=card), _web_graph(device="cpu")
+    if personalized:
+        got = personalized_pagerank(g, [0, 7, 19_999])
+        want = personalized_pagerank(cpu, [0, 7, 19_999])
+    else:
+        got, want = pagerank(g), pagerank(cpu)
+    assert got.converged and want.converged
+    assert abs(got.iterations - want.iterations) <= 5
+    np.testing.assert_allclose(got.scores, want.scores, rtol=0, atol=1e-5)
+    assert abs(got.scores.sum() - 1.0) < 1e-5
+
+
+def test_pagerank_launches_six_per_block(card):
+    """P^T of a large sparse graph takes the "csr" route: each block of 5
+    steps launches csr_spmv 5 times plus once for its residual check, after
+    one launch for the initial residual."""
+    from sublinear_tpu_torch.graph.pagerank import pagerank_inputs, pagerank_run
+
+    opT, v, dangling = pagerank_inputs(_web_graph(device=card))
+    assert type(opT).__name__ == "CsrOperator"
+    before = K.LAUNCHES["csr_spmv"]
+    x, k, res = pagerank_run(opT, v, dangling, 0.85, 1e-6, 1000)
+    blocks = k // 5
+    assert k % 5 == 0 and blocks > 0 and res <= 1e-6 and x.is_cuda
+    assert K.LAUNCHES["csr_spmv"] - before == 1 + 6 * blocks
