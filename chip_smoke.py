@@ -90,7 +90,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
      64 sources, two of its rows held to Dijkstra the same way;
  23. the serving solvers: solve_refined at epsilon 1e-12 with the f64 device
      residual (host f64 relative residual <= 1e-12), PreparedSolver(A,
-     "neumann") over 10 right-hand sides against solve() and
+     "neumann") over 10 right-hand sides against solve() (the same
+     launches as solve()'s, counted apart) and
      PreparedSolver(S, "cg") on the SPD matrix, streaming_solve (CG,
      chunk_iters=10) on the SPD matrix with one DeltaUpdate queued after the
      first chunk, and solve_streaming on the n=1M matrix in >= 8 row panels,
@@ -100,20 +101,26 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
      0.85, epsilon 1e-6) and personalized_pagerank from 20 nodes, each held
      to an f64 scipy power iteration within the bound of its residual, with
      csr_spmv launches 1 + 6 per 5-step block and the host set-up (P^T,
-     out-degrees, pack_csr) timed apart from the loop; degroot_consensus
+     out-degrees, pack_csr) timed apart from the loop; pagerank on an
+     R-MAT digraph of the same n and edge count (Graph500's a=0.57,
+     b=c=0.19, ids scrambled), whose hubs give P^T rows past
+     SPMV_LONG_ROW entries (csr_spmv's one-row blocks); degroot_consensus
      (100 csr_spmv launches), friedkin_johnsen (neumann_step; host f64
      residual of I - (1-s) W) and influence_propagation;
  25. the queries on the headline matrix: estimate_functional (t from
      default_rng(11)) within 1e-3 max(|t.x|, 1) + its error bound of t.x,
      estimate_entry by backward push and by Neumann (the inverse entry) at
-     four entries, each within its half-width and the 1e-6 solve's bound,
+     four entries, each within its half-width and the 1e-6 solve's bound
+     and each launching what one adjoint push or Neumann solve at its
+     epsilon 1e-4 launches,
      estimate_entries by random walk on 10,000 rows x 64 walks (99% within
      5 standard errors), and the temporal lead at n=1000 (DIA route);
  26. on the connected undirected graph (a ring of 100k nodes plus 400k
      uniform edges, as graph.flow.weighted_laplacian builds it):
      effective_resistance (cg_step; host f64 residual), electrical_network
      and min_cost_flow at epsilon 1e-8 (their converged flags; host f64
-     residual below F32_CG_LEVEL), closeness on the first 256 nodes equal
+     residual below F32_CG_LEVEL, and the same CG run by the port on the
+     CPU in f32, which must reach it too, and in f64), closeness on the first 256 nodes equal
      to the BFS levels bit for bit, betweenness from 8 sources against the
      host Brandes at rtol 1e-5 and timed at 256, detect_communities;
  27. the utilities on the card: record_solve and ProfileLog of phase 4's
@@ -129,10 +136,13 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
      because a torch.profiler window slows the host-bound solves that
      follow it in the same process (BiCGSTAB, CG on the ELL route).
 
-Phases 19-27 each set the kernels' launch counts to 0 before they drive
-their path and print the counts after it; the kernels line's launches add
-those of phases 24-27 to the main path's.  Phases 24-27 print the card's
-name and power limit in their headers.
+Phases 19-27 each set the kernels' launch counts to 0 right before they
+drive a path and print the counts right after it; oracles and checks
+that launch run outside those windows.  The kernels line's "launches" is
+the sum of every counted path: phase 4's solve (csr_spmv, neumann_step),
+phase 9's cg_step, phase 15's two fused solves, phase 17's Neumann batch
+(csr_spmm) and every window of phases 19-27.  Phases 24-27 print the
+card's name and power limit in their headers.
 
 Beside each kernel's time the script computes its bound (the least time the
 card could take: the bytes the function must move at 3.35 TB/s, or its
@@ -195,6 +205,7 @@ N_PREPARED = 10
 PREPARED_RTOL = 1e-6
 MIN_PANELS = 8
 N_WEB, E_WEB = 1_000_000, 5_000_000  # the web-scale digraph (web-Google size)
+RMAT_SCALE, RMAT_A, RMAT_B = 20, 0.57, 0.19  # Graph500's R-MAT (b = c)
 N_UND, E_UND = 100_000, 400_000      # the connected undirected graph
 DAMPING = 0.85
 N_PPR_SEEDS = 20
@@ -205,7 +216,8 @@ N_CLOSENESS = 256       # closeness on the first 256 nodes (one chunk)
 N_BC_CHECK, N_BC_TIMED = 8, 256  # betweenness sources: held / timed
 BC_RTOL = 1e-5
 F32_CG_LEVEL = 1e-4     # the true relative residual an f32 CG reaches on the
-#                         grounded flow systems (its recurrence runs lower)
+#                         grounded flow systems (its recurrence runs lower);
+#                         phase 26 prints the same CG's level on the CPU
 N_DELTA = 20            # entries of update_rhs's delta
 DEVICE_REPS = 50        # back-to-back calls in a profiled window
 SECTOR_BYTES = 32       # what L2 moves for one gathered 4-byte x element
@@ -660,7 +672,18 @@ def counted(K):
     return {k: v for k, v in K.LAUNCHES.items() if v}
 
 
-def solver_family(torch, slt, K, A, b, S, A_big, b_big):
+def path_counts(K, launches):
+    """counted(K) of the path window just run (counts set to 0 right before
+    the path and read right after it; nothing else in the window launches a
+    kernel: oracles run outside it), added to ``launches``, the kernels
+    line's totals."""
+    counts = counted(K)
+    for name, v in counts.items():
+        launches[name] += v
+    return counts
+
+
+def solver_family(torch, slt, K, A, b, S, A_big, b_big, launches):
     """Phases 19-23: the rest of the solver family on the card."""
     from sublinear_tpu_torch import native
     from sublinear_tpu_torch.formats import streaming as FS
@@ -690,7 +713,7 @@ def solver_family(torch, slt, K, A, b, S, A_big, b_big):
     for method in ("jacobi", "gauss-seidel", "sor"):
         reset(K)
         r, rel = check_solve(slt, A, b, f"{method} n={n}", method)
-        counts = counted(K)
+        counts = path_counts(K, launches)
         per = 1 if method == "jacobi" else n_colors
         # one product per color and sweep, one per residual check
         want = r.iterations * per + r.iterations // 5 + 1
@@ -717,7 +740,7 @@ def solver_family(torch, slt, K, A, b, S, A_big, b_big):
         RW.walk_estimate(A, b, sel[:100], opts)  # tables built, warm
         reset(K)
         est, var, steps = RW.walk_estimate(A, b, sel, opts)
-        counts = counted(K)
+        counts = path_counts(K, launches)
         se = np.sqrt(np.maximum(var, 0.0) / WALKS)
         share = float(np.mean(np.abs(est - exact[sel]) <= WALK_SE * se + 1e-6))
         if not (np.all(np.isfinite(est)) and est.shape == sel.shape
@@ -752,7 +775,7 @@ def solver_family(torch, slt, K, A, b, S, A_big, b_big):
     phase(f"21 hybrid at n={n}")
     reset(K)
     r, rel = check_solve(slt, A, b, f"hybrid n={n}", "hybrid")
-    counts = counted(K)
+    counts = path_counts(K, launches)
     if not counts.get("csr_spmv"):
         raise RuntimeError(f"hybrid: launches {counts}")
     warm = warm_ms(torch, lambda: slt.solve(A, b, method="hybrid",
@@ -768,7 +791,7 @@ def solver_family(torch, slt, K, A, b, S, A_big, b_big):
                              max_walk_length=64)
     reset(K)
     r = solve_hybrid(T, b_t, opts, raise_on_fail=False)
-    counts = counted(K)
+    counts = path_counts(K, launches)
     (secs,) = warm_ms(torch, lambda: solve_hybrid(T, b_t, opts,
                                                   raise_on_fail=False), 1)
     names = [q["phase"] for q in r.phases]
@@ -795,7 +818,7 @@ def solver_family(torch, slt, K, A, b, S, A_big, b_big):
     t0 = time.perf_counter()
     r = slt.solve(A, b_s, method="bmssp", raise_on_fail=False)
     first_s = time.perf_counter() - t0
-    counts = counted(K)
+    counts = path_counts(K, launches)
     warm = warm_ms(torch, lambda: slt.solve(A, b_s, method="bmssp",
                                             raise_on_fail=False), 3)
     if r.method != "bmssp" or not np.all(np.isfinite(r.solution)):
@@ -836,7 +859,7 @@ def solver_family(torch, slt, K, A, b, S, A_big, b_big):
     try:
         reset(K)
         r = RF.solve_refined(A, b, slt.SolverOptions(epsilon=1e-12))
-        counts = counted(K)
+        counts = path_counts(K, launches)
     finally:
         RF.solve = plain_solve
     rel = host_residual(A, r.solution, b)
@@ -850,12 +873,19 @@ def solver_family(torch, slt, K, A, b, S, A_big, b_big):
           f"{r.residual / np.linalg.norm(b):.3e} relative, host f64 "
           f"{rel:.3e}, launches {counts}, warm ms "
           f"{' '.join(f'{t:.3f}' for t in warm)}", flush=True)
+    B = np.random.default_rng(5).standard_normal((n, N_PREPARED))
+    reset(K)
+    wants = [slt.solve(A, B[:, j], method="neumann")
+             for j in range(N_PREPARED)]
+    want_counts = counted(K)  # solve()'s, the oracle's: not the path's
     reset(K)
     ps = PreparedSolver(A, "neumann")
-    B = np.random.default_rng(5).standard_normal((n, N_PREPARED))
+    built = path_counts(K, launches)  # its warm-up solve of b = 0
+    reset(K)
+    gots = [ps.solve(B[:, j]) for j in range(N_PREPARED)]
+    counts = path_counts(K, launches)
     worst = 0.0
-    for j in range(N_PREPARED):
-        got, want = ps.solve(B[:, j]), slt.solve(A, B[:, j], method="neumann")
+    for j, (got, want) in enumerate(zip(gots, wants)):
         diff = float(np.abs(got.solution - want.solution).max()
                      / np.abs(want.solution).max())
         worst = max(worst, diff)
@@ -864,22 +894,23 @@ def solver_family(torch, slt, K, A, b, S, A_big, b_big):
             raise RuntimeError(f"PreparedSolver rhs {j}: iterations "
                                f"{got.iterations} vs {want.iterations}, rel "
                                f"diff {diff}")
-    counts = counted(K)
-    if not counts.get("neumann_step"):
-        raise RuntimeError(f"PreparedSolver: launches {counts}")
+    if not (counts.get("neumann_step") and counts == want_counts):
+        raise RuntimeError(f"PreparedSolver: launches {counts}, solve()'s "
+                           f"{want_counts}")
     bj = B[:, 0]
     prep = warm_ms(torch, lambda: ps.solve(bj), 5)
     plain = warm_ms(torch, lambda: slt.solve(A, bj, method="neumann"), 5)
     print(f"PreparedSolver(neumann): {N_PREPARED} RHS, {got.iterations} "
           f"iterations each, max rel diff from solve() {worst:.2e}, launches "
-          f"{counts}; warm ms per prepared solve "
+          f"{counts} (those of the {N_PREPARED} solve() calls; the "
+          f"constructor's {built}); warm ms per prepared solve "
           f"{' '.join(f'{t:.4f}' for t in prep)}, per solve() "
           f"{' '.join(f'{t:.4f}' for t in plain)}", flush=True)
     reset(K)
     pcg = PreparedSolver(S, "cg")
     r = pcg.solve(b)
     rel = host_residual(S, r.solution, b)
-    counts = counted(K)
+    counts = path_counts(K, launches)
     if not (r.converged and rel < SOLVE_RTOL and counts.get("cg_step")):
         raise RuntimeError(f"PreparedSolver(cg): rel {rel} launches {counts}")
     prep = warm_ms(torch, lambda: pcg.solve(b), 5)
@@ -898,7 +929,7 @@ def solver_family(torch, slt, K, A, b, S, A_big, b_big):
 
     reset(K)
     out = stream()
-    counts = counted(K)
+    counts = path_counts(K, launches)
     warm = warm_ms(torch, stream, 3)
     chunks = [(c.iteration, c.converged, c.rhs_version, f"{c.residual:.3e}")
               for c in out]
@@ -928,8 +959,9 @@ def solver_family(torch, slt, K, A, b, S, A_big, b_big):
     y = sop.matvec_device(xs)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    if K.LAUNCHES["csr_spmv"] != sop.n_panels:
-        raise RuntimeError(f"panel product launches {counted(K)}")
+    counts = path_counts(K, launches)
+    if counts != {"csr_spmv": sop.n_panels}:
+        raise RuntimeError(f"panel product launches {counts}")
     err = rel_err(y, A_big.op().matvec(xs))
     if not err <= KERNEL_RTOL:
         raise RuntimeError(f"panel product vs CsrOperator.matvec: {err}")
@@ -939,7 +971,7 @@ def solver_family(torch, slt, K, A, b, S, A_big, b_big):
     r = FS.solve_streaming(A_big, b_big, panel_budget=budget)
     secs = time.perf_counter() - t0
     rel = host_residual(A_big, r.solution, b_big)
-    counts = counted(K)
+    counts = path_counts(K, launches)
     if not (r.converged and r.method == "neumann-streaming"
             and rel < SOLVE_RTOL):
         raise RuntimeError(f"solve_streaming: converged={r.converged} rel "
@@ -953,13 +985,6 @@ def solver_family(torch, slt, K, A, b, S, A_big, b_big):
           flush=True)
 
 
-def add_launches(launches, K):
-    """Add the CSR kernels' counts of the phase just run to ``launches``,
-    the kernels line's main-path totals."""
-    for name in ("csr_spmv", "neumann_step", "cg_step"):
-        launches[name] += K.LAUNCHES[name]
-
-
 def web_graph(slt):
     """The web-scale digraph: N_WEB nodes, E_WEB uniform directed edges from
     default_rng(SEED), self-loops dropped, duplicates summed, weights 1."""
@@ -967,6 +992,31 @@ def web_graph(slt):
     r, c = rng.integers(0, N_WEB, E_WEB), rng.integers(0, N_WEB, E_WEB)
     keep = r != c
     return slt.Matrix.from_coo(r[keep], c[keep], np.ones(int(keep.sum())),
+                               (N_WEB, N_WEB))
+
+
+def rmat_graph(slt):
+    """The skewed digraph: E_WEB R-MAT edges with Graph500's parameters
+    (a=0.57, b=c=0.19) over 2^RMAT_SCALE ids from default_rng(SEED), the ids
+    scrambled by a seeded permutation as Graph500 does, the edges with an
+    end at or past N_WEB and the self-loops dropped, duplicates summed,
+    weights 1.  Hubs of in-degree in the thousands, as a web graph has."""
+    rng = np.random.default_rng(SEED)
+    m = int(E_WEB * 1.25)  # ~9% of the edges have an end past N_WEB
+    r = np.zeros(m, dtype=np.int64)
+    c = np.zeros(m, dtype=np.int64)
+    for bit in range(RMAT_SCALE):
+        u = rng.random(m)
+        # quadrants a (0,0), b (0,1), c (1,0), d (1,1)
+        r |= (u >= RMAT_A + RMAT_B).astype(np.int64) << bit
+        c |= (((u >= RMAT_A) & (u < RMAT_A + RMAT_B))
+              | (u >= RMAT_A + 2 * RMAT_B)).astype(np.int64) << bit
+    perm = rng.permutation(1 << RMAT_SCALE)
+    r, c = perm[r], perm[c]
+    keep = np.flatnonzero((r < N_WEB) & (c < N_WEB) & (r != c))[:E_WEB]
+    if keep.size != E_WEB:
+        raise RuntimeError(f"R-MAT kept {keep.size} edges < {E_WEB}")
+    return slt.Matrix.from_coo(r[keep], c[keep], np.ones(keep.size),
                                (N_WEB, N_WEB))
 
 
@@ -1016,8 +1066,9 @@ def check_pagerank(r, v, oracle, label):
 
 
 def graph_phase(torch, slt, K, launches, smi):
-    """Phase 24: PageRank and the social dynamics on the web-scale graph.
-    Returns the graph and its PageRank for phase 27."""
+    """Phase 24: PageRank on the web-scale and the R-MAT graph, and the
+    social dynamics on the web-scale graph, which it returns for phase
+    27."""
     from sublinear_tpu_torch import graph as G
     from sublinear_tpu_torch.graph.pagerank import pagerank_inputs, pagerank_run
 
@@ -1029,8 +1080,7 @@ def graph_phase(torch, slt, K, launches, smi):
           f"built in {time.perf_counter() - t0:.2f} host s", flush=True)
     reset(K)
     r = G.pagerank(W, damping=DAMPING, epsilon=1e-6)
-    counts = counted(K)
-    add_launches(launches, K)
+    counts = path_counts(K, launches)
     blocks = r.iterations // 5
     if counts != {"csr_spmv": 1 + 6 * blocks}:
         raise RuntimeError(f"pagerank: launches {counts}, csr_spmv expected "
@@ -1058,11 +1108,40 @@ def graph_phase(torch, slt, K, launches, smi):
           f"iteration loop warm ms {' '.join(f'{t:.3f}' for t in loop)}; "
           f"whole call ms {' '.join(f'{t:.1f}' for t in whole)}", flush=True)
 
+    t0 = time.perf_counter()
+    Wr = rmat_graph(slt)
+    build_s = time.perf_counter() - t0
+    # P^T's row lengths are the in-degrees
+    in_deg = np.bincount(Wr.csr.indices, minlength=N_WEB)
+    n_long = int((in_deg > K.SPMV_LONG_ROW).sum())
+    if not n_long:
+        raise RuntimeError(f"R-MAT: no in-degree past {K.SPMV_LONG_ROW}")
+    print(f"R-MAT graph (a={RMAT_A}, b=c={RMAT_B}): {Wr.nnz} edges, "
+          f"{int((Wr.csr.row_nnz() == 0).sum())} dangling nodes, max "
+          f"in-degree {int(in_deg.max())}, {n_long} rows of P^T past "
+          f"{K.SPMV_LONG_ROW} entries (csr_spmv's one-row blocks), built in "
+          f"{build_s:.2f} host s", flush=True)
+    reset(K)
+    rr = G.pagerank(Wr, damping=DAMPING, epsilon=1e-6)
+    counts = path_counts(K, launches)
+    if counts != {"csr_spmv": 1 + 6 * (rr.iterations // 5)}:
+        raise RuntimeError(f"pagerank R-MAT: launches {counts}")
+    print(f"pagerank R-MAT: "
+          f"{check_pagerank(rr, v, pagerank_oracle(Wr.csr, v), 'R-MAT')}; "
+          f"launches {counts}; top score {rr.scores.max():.3e}", flush=True)
+    opT, v_t, dang = pagerank_inputs(Wr)
+    if type(opT).__name__ != "CsrOperator":
+        raise RuntimeError(f"R-MAT P^T takes {type(opT).__name__}")
+    loop = warm_ms(torch, lambda: pagerank_run(opT, v_t, dang, DAMPING, 1e-6,
+                                               1000), 3)
+    print(f"pagerank R-MAT iteration loop warm ms "
+          f"{' '.join(f'{t:.3f}' for t in loop)}", flush=True)
+    del Wr, opT, v_t, dang
+
     seeds = np.random.default_rng(0).choice(N_WEB, N_PPR_SEEDS, replace=False)
     reset(K)
     rp = G.personalized_pagerank(W, seeds)
-    counts = counted(K)
-    add_launches(launches, K)
+    counts = path_counts(K, launches)
     vp = np.zeros(N_WEB)
     vp[seeds] = 1.0 / N_PPR_SEEDS
     if counts != {"csr_spmv": 1 + 6 * (rp.iterations // 5)}:
@@ -1076,8 +1155,7 @@ def graph_phase(torch, slt, K, launches, smi):
     t0 = time.perf_counter()
     dg = G.degroot_consensus(W, x0, steps=DEGROOT_STEPS)
     dg_s = time.perf_counter() - t0
-    counts = counted(K)
-    add_launches(launches, K)
+    counts = path_counts(K, launches)
     if counts != {"csr_spmv": DEGROOT_STEPS} or not np.all(
             np.isfinite(dg["opinions"])):
         raise RuntimeError(f"degroot_consensus: launches {counts}")
@@ -1090,8 +1168,7 @@ def graph_phase(torch, slt, K, launches, smi):
     t0 = time.perf_counter()
     fj = G.friedkin_johnsen(W, x0, susceptibility=FJ_SUSCEPTIBILITY)
     fj_s = time.perf_counter() - t0
-    counts = counted(K)
-    add_launches(launches, K)
+    counts = path_counts(K, launches)
     Wn = G.social.row_normalize(W)
     x = np.asarray(fj["opinions"])
     sys_x = x - (1 - FJ_SUSCEPTIBILITY) * Wn.csr.matvec(x)
@@ -1108,8 +1185,7 @@ def graph_phase(torch, slt, K, launches, smi):
 
     reset(K)
     inf = G.influence_propagation(W, seeds.tolist())
-    counts = counted(K)
-    add_launches(launches, K)
+    counts = path_counts(K, launches)
     scores = np.asarray(inf["influenceScores"])
     if not (inf["converged"] and np.allclose(scores, rp.scores, rtol=0,
                                              atol=1e-9)
@@ -1118,13 +1194,14 @@ def graph_phase(torch, slt, K, launches, smi):
                            f"{inf['converged']} launches {counts}")
     print(f"influence_propagation: seed mass {inf['totalSeedInfluence']:.4f}"
           f", top {inf['topInfluenced'][0]}, launches {counts}", flush=True)
-    return W, r
+    return W
 
 
 def query_phase(torch, slt, K, A, b, r_main, launches, smi):
     """Phase 25: the queries on the headline matrix and the temporal lead at
     n=1000 (DIA route)."""
     from sublinear_tpu_torch import queries as Q
+    from sublinear_tpu_torch.solvers import push as PUSH
     from sublinear_tpu_torch.solvers import random_walk as RW
 
     n = A.shape[0]
@@ -1133,8 +1210,7 @@ def query_phase(torch, slt, K, A, b, r_main, launches, smi):
     t = np.random.default_rng(11).standard_normal(n)
     reset(K)
     out = Q.estimate_functional(A, b, t)
-    counts = counted(K)
-    add_launches(launches, K)
+    counts = path_counts(K, launches)
     exact = float(t @ x)
     gap = abs(out["estimate"] - exact)
     allowed = 1e-3 * max(abs(exact), 1.0) + out["errorBound"]
@@ -1150,42 +1226,55 @@ def query_phase(torch, slt, K, A, b, r_main, launches, smi):
 
     rows = [0, 1, n // 2, n - 1]
     cols = [0, 7, n // 3, n - 1]
+    # estimate_entry's own options; each entry is one adjoint push or one
+    # Neumann solve at them, which the entry's launches must equal
+    entry_opts = slt.SolverOptions(epsilon=1e-4)
     for method in ("backward-push", "neumann"):
-        reset(K)
-        worst = 0.0
+        worst, per_entry = 0.0, []
+        unit = "Neumann solve" if method == "neumann" else "adjoint push"
         for row, col in zip(rows, cols):
-            est = Q.estimate_entry(A, b, row, col, method=method)
+            e = np.zeros(n)
             if method == "neumann":
-                e = np.zeros(n)
                 e[col] = 1.0
                 ref = slt.solve(A, e, method="neumann", epsilon=1e-6)
                 want, err = ref.solution[row], ref.error_bounds.upper_bound
+                reset(K)
+                slt.solve(A, e, entry_opts, method="neumann",
+                          raise_on_fail=False)
             else:
+                e[row] = 1.0
                 want, err = x[row], x_err
+                reset(K)
+                PUSH.adjoint_solve(A, e, entry_opts)
+            one = counted(K)
+            reset(K)
+            est = Q.estimate_entry(A, b, row, col, method=method)
+            counts = path_counts(K, launches)
+            if not (counts == one and counts.get("csr_spmv") and (
+                    method != "neumann" or counts.get("neumann_step"))):
+                raise RuntimeError(f"estimate_entry {method} ({row}, {col}): "
+                                   f"launches {counts}, one {unit} {one}")
             gap = abs(est.estimate - want)
             if not gap <= est.confidence + err + 1e-7:
                 raise RuntimeError(f"estimate_entry {method} ({row}, {col}): "
                                    f"{est.estimate} vs {want}, |diff| {gap} "
                                    f"> {est.confidence} + {err}")
             worst = max(worst, gap)
-        counts = counted(K)
-        add_launches(launches, K)
-        if not counts.get("csr_spmv") or (method == "neumann"
-                                          and not counts.get("neumann_step")):
-            raise RuntimeError(f"estimate_entry {method}: launches {counts}")
+            per_entry.append(counts)
         warm = warm_ms(torch, lambda: Q.estimate_entry(A, b, rows[1], cols[1],
                                                        method=method), 3)
         print(f"estimate_entry {method} at rows {rows} (columns {cols}): "
               f"max |diff| from the 1e-6 solve {worst:.3e} (within each "
-              f"estimate's half-width + the solve's bound), launches over "
-              f"{len(rows)} entries {counts}; warm ms per entry "
+              f"estimate's half-width + the solve's bound), launches per "
+              f"entry {per_entry} (each those of one {unit} at epsilon "
+              f"1e-4); warm ms per entry "
               f"{' '.join(f'{w:.3f}' for w in warm)}", flush=True)
 
     sel = np.random.default_rng(11).integers(0, n, N_WALK_ROWS)
     opts = slt.SolverOptions(epsilon=1e-3, num_walks=WALKS)
     reset(K)
     est = Q.estimate_entries(A, b, sel, options=opts)
-    counts = counted(K)
+    counts = path_counts(K, launches)
     est2, var, steps = RW.walk_estimate(A, b, sel, opts)
     se = np.sqrt(np.maximum(var, 0.0) / WALKS)
     share = float(np.mean(np.abs(est - x[sel]) <= WALK_SE * se + 1e-6))
@@ -1209,7 +1298,7 @@ def query_phase(torch, slt, K, A, b, r_main, launches, smi):
     reset(K)
     pred = Q.predict_with_temporal_advantage(T, b_t)
     val = Q.validate_temporal_advantage(1000)
-    counts = counted(K)
+    counts = path_counts(K, launches)
     rel = host_residual(T, np.asarray(pred["solution"]), b_t)
     if not (pred["converged"] and val["converged"] and rel < SOLVE_RTOL
             and not counts):
@@ -1219,6 +1308,27 @@ def query_phase(torch, slt, K, A, b, r_main, launches, smi):
     print(f"predict_with_temporal_advantage n=1000 (DIA): {shown}; host f64 "
           f"rel residual {rel:.3e}", flush=True)
     print(f"validate_temporal_advantage(1000): {val}", flush=True)
+
+
+def f32_cg_witness(torch, slt, M, rhs):
+    """The level an f32 CG reaches on M x = rhs, seen apart from the card:
+    the host f64 relative residuals of the flows' own solve (CG, epsilon
+    1e-8, 5000 iterations) run by the port on the CPU in f32 and in f64,
+    and of the f64 answer rounded to f32 (the floor of any f32 answer).
+    The f32 solve takes M's route ("csr"); the f64 one the ELL route, as
+    the CSR operator is f32 only."""
+    coo = M.csr.to_coo()
+    out = {}
+    for label, dtype, route in (("CPU f32", None, None),
+                                ("CPU f64", torch.float64, "ell")):
+        Mc = slt.Matrix.from_coo(*coo, M.shape, prefer=route, device="cpu")
+        r = slt.solve(Mc, rhs, slt.SolverOptions(
+            epsilon=1e-8, max_iterations=5000, dtype=dtype),
+            method="conjugate-gradient", raise_on_fail=False)
+        out[label] = host_residual(Mc, r.solution, rhs)
+    out["f64 answer in f32"] = host_residual(
+        Mc, r.solution.astype(np.float32).astype(np.float64), rhs)
+    return out
 
 
 def flow_phase(torch, slt, K, launches, smi):
@@ -1247,8 +1357,7 @@ def flow_phase(torch, slt, K, launches, smi):
 
     reset(K)
     er = G.effective_resistance(L, 0, n // 2)
-    counts = counted(K)
-    add_launches(launches, K)
+    counts = path_counts(K, launches)
     Lg = G.grounded_laplacian(L)
     e = np.zeros(n - 1)
     e[0] = 1.0
@@ -1277,8 +1386,7 @@ def flow_phase(torch, slt, K, launches, smi):
         t0 = time.perf_counter()
         out = call()
         secs = time.perf_counter() - t0
-        counts = counted(K)
-        add_launches(launches, K)
+        counts = path_counts(K, launches)
         M = slt.Matrix.from_coo(np.r_[r_, diag_nodes], np.r_[c_, diag_nodes],
                                 np.r_[v_, np.full(len(diag_nodes), big)],
                                 (n, n))
@@ -1287,13 +1395,18 @@ def flow_phase(torch, slt, K, launches, smi):
             rhs_f[node] = val
         rel = host_residual(M, np.asarray(out[key]), rhs_f)
         info = out["convergenceInfo"]
-        if not (rel < F32_CG_LEVEL and counts.get("cg_step")
-                and np.all(np.isfinite(out[key]))):
+        witness = f32_cg_witness(torch, slt, M, rhs_f)
+        if not (rel < F32_CG_LEVEL and witness["CPU f32"] < F32_CG_LEVEL
+                and counts.get("cg_step") and np.all(np.isfinite(out[key]))):
             raise RuntimeError(f"{name}: {info} host rel residual {rel} "
+                               f"(the same CG on the CPU: {witness}) "
                                f"launches {counts}")
         print(f"{name}: {info} (epsilon 1e-8), host f64 rel residual "
               f"{rel:.3e} (< {F32_CG_LEVEL}), launches {counts}, {secs:.2f} "
-              f"s with the Python loops over the edges", flush=True)
+              f"s with the Python loops over the edges; the same CG on the "
+              f"CPU port, host f64 rel residuals: "
+              f"{', '.join(f'{k} {v:.3e}' for k, v in witness.items())}",
+              flush=True)
 
     Au = C._unit_graph(L)
     S = sp.csr_matrix((Au.csr.data, Au.csr.indices, Au.csr.indptr),
@@ -1301,6 +1414,7 @@ def flow_phase(torch, slt, K, launches, smi):
     nodes = np.arange(N_CLOSENESS)
     reset(K)
     close = np.asarray(G.closeness_centrality(L, nodes)["closenessVector"])
+    path_counts(K, launches)
     t0 = time.perf_counter()
     levels = shortest_path(S, method="D", unweighted=True, indices=nodes)
     bfs_s = time.perf_counter() - t0
@@ -1322,8 +1436,10 @@ def flow_phase(torch, slt, K, launches, smi):
           f"BFS {bfs_s:.2f} host s), max {close.max():.5f}; warm ms "
           f"{' '.join(f'{t:.1f}' for t in warm)}", flush=True)
 
+    reset(K)
     bc = np.asarray(G.betweenness_centrality(
         L, num_samples=N_BC_CHECK, backend="device")["betweennessVector"])
+    path_counts(K, launches)
     sources = np.random.default_rng(0).choice(n, N_BC_CHECK, replace=False)
     t0 = time.perf_counter()
     exact = C._betweenness_host(L, sources, n / N_BC_CHECK)
@@ -1393,12 +1509,12 @@ def utility_phase(torch, slt, K, A, b, r_main, W, launches, smi):
     reset(K)
     with profile_memory("pagerank", n=W.shape[0], nnz=W.nnz) as prof:
         pr = G.pagerank(W)
-    add_launches(launches, K)
+    counts = path_counts(K, launches)
     if not (prof.backend == "cuda" and prof.device_peak_bytes > 0
             and pr.converged):
         raise RuntimeError(f"profile_memory: {prof}")
-    print(f"profile_memory around PageRank n={W.shape[0]}: {prof.to_dict()}",
-          flush=True)
+    print(f"profile_memory around PageRank n={W.shape[0]}: {prof.to_dict()}; "
+          f"launches {counts}", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "ckpt.npz")
@@ -1406,7 +1522,7 @@ def utility_phase(torch, slt, K, A, b, r_main, W, launches, smi):
         ckpt = SolverCheckpoint.load(path)
     reset(K)
     res = resume(A, ckpt)
-    add_launches(launches, K)
+    counts = path_counts(K, launches)
     own = res.iterations - ckpt.iterations
     rel = host_residual(A, res.solution, b)
     if not (res.converged and own <= r_main.iterations and rel < SOLVE_RTOL):
@@ -1414,19 +1530,20 @@ def utility_phase(torch, slt, K, A, b, r_main, W, launches, smi):
                            f"iterations {own} host rel residual {rel}")
     print(f"resume from a saved checkpoint of phase 4's solve: {res.method}, "
           f"{own} more iterations (first solve {r_main.iterations}), host f64 "
-          f"rel residual {rel:.3e}", flush=True)
+          f"rel residual {rel:.3e}, launches {counts}", flush=True)
     rng = np.random.default_rng(3)
     delta = DeltaUpdate(indices=rng.choice(A.shape[0], N_DELTA, replace=False),
                         values=rng.uniform(-0.5, 0.5, N_DELTA))
     reset(K)
     r2, b_new = update_rhs(A, r_main, delta, b)
-    add_launches(launches, K)
+    counts = path_counts(K, launches)
     rel = host_residual(A, r2.solution, b_new)
     if not (r2.converged and rel < SOLVE_RTOL):
         raise RuntimeError(f"update_rhs: converged={r2.converged} rel {rel}")
     print(f"update_rhs with a {N_DELTA}-entry delta: {r2.method}, "
           f"{r2.iterations - r_main.iterations} more iterations, host f64 "
-          f"rel residual to the new b {rel:.3e}", flush=True)
+          f"rel residual to the new b {rel:.3e}, launches {counts}",
+          flush=True)
 
 
 def main() -> int:
@@ -1523,12 +1640,11 @@ def main() -> int:
     phase(f"4 main path: solve(method='neumann') at n={N_MAIN}")
     reset(K)
     r_main, rel = check_solve(slt, A, b, f"n={N_MAIN}")
-    r = r_main
     launches = dict(K.LAUNCHES)
     if not (launches["csr_spmv"] and launches["neumann_step"]):
         raise RuntimeError(f"a kernel of the main path never launched: "
                            f"{launches}")
-    print(f"iterations={r.iterations} residual={r.residual:.3e} "
+    print(f"iterations={r_main.iterations} residual={r_main.residual:.3e} "
           f"host f64 rel residual={rel:.3e} launches={launches} steps="
           f"{K.STEPS}", flush=True)
     warm = warm_ms(torch, lambda: slt.solve(A, b, method="neumann",
@@ -2061,8 +2177,8 @@ def main() -> int:
           f"{rels.max():.3e} launches={counts}; warm ms per batch "
           f"{' '.join(f'{t:.4f}' for t in warm)}", flush=True)
 
-    solver_family(torch, slt, K, A, b, S, A_big, b_big)
-    W, _ = graph_phase(torch, slt, K, launches, smi)
+    solver_family(torch, slt, K, A, b, S, A_big, b_big, launches)
+    W = graph_phase(torch, slt, K, launches, smi)
     query_phase(torch, slt, K, A, b, r_main, launches, smi)
     flow_phase(torch, slt, K, launches, smi)
     utility_phase(torch, slt, K, A, b, r_main, W, launches, smi)
