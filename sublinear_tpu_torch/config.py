@@ -11,6 +11,8 @@ import os
 import numpy as np
 import torch
 
+from . import tracing
+
 torch.backends.cuda.matmul.allow_tf32 = False
 
 
@@ -73,10 +75,34 @@ def to_device(a, dtype: torch.dtype, dev=None) -> torch.Tensor:
     torch's intra-op thread pool, whose threads then contend with the solver
     loop's host work (measured on an 8-core H100 host: a warm n=100k solve
     took 10-33 ms with torch converting on 8 threads, 1.4-2.5 ms with NumPy
-    converting).  On the CPU the tensor may share ``a``'s memory."""
-    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
-    host = np.ascontiguousarray(a, dtype=np_dtype)
-    return torch.from_numpy(host).to(device(dev))
+    converting).  On the CPU the tensor may share ``a``'s memory.  Span
+    ``slt.to_device``; counts the tensor's bytes in ``h2d_bytes``."""
+    with tracing.span("slt.to_device"):
+        np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+        host = np.ascontiguousarray(a, dtype=np_dtype)
+        t = torch.from_numpy(host).to(device(dev))
+        tracing.count("h2d_bytes", t.numel() * t.element_size())
+        return t
+
+
+def to_host(t: torch.Tensor, dtype=None) -> np.ndarray:
+    """A tensor as a NumPy array on the host, converted to ``dtype`` (a
+    NumPy dtype) by NumPy where given: the host waits for the device's
+    work on ``t``.  On the CPU the array may share ``t``'s memory when no
+    ``dtype`` is given.  Span ``slt.to_host``; counts one ``host_syncs``
+    and the tensor's bytes in ``d2h_bytes``."""
+    with tracing.span("slt.to_host"):
+        tracing.count_read(t.numel() * t.element_size())
+        host = t.detach().cpu().numpy()
+        return host if dtype is None else host.astype(dtype)
+
+
+def host_float(t: torch.Tensor) -> float:
+    """``float(t)`` of a one-element tensor: the host waits for the device's
+    work on ``t``.  Counts one ``host_syncs`` and its bytes in
+    ``d2h_bytes``; no span (its time is the device work it waits for)."""
+    tracing.count_read(t.element_size())
+    return float(t)
 
 
 def resolve_dtype(dtype) -> torch.dtype:

@@ -26,7 +26,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import to_device
+from .. import tracing
+from ..config import to_device, to_host
 from ..errors import InvalidParametersError
 from ..formats.ell import pad_vector
 from ..matrix import Matrix
@@ -55,6 +56,7 @@ class PageRankResult:
         }
 
 
+@tracing.traced("slt.pagerank.transition")
 def _transition_matrix(adjacency: Matrix) -> Matrix:
     """Column-stochastic P^T as a Matrix on the adjacency's device (host
     side, one O(nnz) pass), with the adjacency's operator preference (P^T
@@ -70,6 +72,7 @@ def _transition_matrix(adjacency: Matrix) -> Matrix:
                            prefer=adjacency._prefer, device=adjacency.device)
 
 
+@tracing.traced("slt.pagerank.inputs")
 def pagerank_inputs(adjacency: Matrix, personalized=None, dtype=None):
     """The host set-up of one PageRank call: (P^T's device operator, the
     teleport vector v, the dangling-node mask), on the adjacency's
@@ -98,6 +101,7 @@ def pagerank_inputs(adjacency: Matrix, personalized=None, dtype=None):
             to_device(dangling, torch.bool, dev))
 
 
+@tracing.traced("slt.pagerank.run")
 def pagerank_run(opT, v, dangling_mask, alpha, threshold, max_iters,
                  check_every=CHECK_EVERY):
     """The power iteration from x = v: returns (x / sum(x), steps, residual)
@@ -135,7 +139,7 @@ def pagerank(
     x, k, res = pagerank_run(opT, v, dangling, damping, float(epsilon),
                              int(max_iterations))
     return PageRankResult(
-        scores=x.cpu().double().numpy()[:n],
+        scores=to_host(x, np.float64)[:n],
         iterations=int(k),
         residual=res,
         converged=bool(res <= epsilon * 1.0000001),

@@ -25,7 +25,7 @@ from typing import Optional
 
 import numpy as np
 
-from . import config
+from . import config, tracing
 from .config import DENSE_THRESHOLD
 from .errors import DimensionMismatchError, InvalidMatrixError
 from .formats import ell as _ell
@@ -57,6 +57,7 @@ class Matrix:
 
     # ------------------------------------------------------------ constructors
     @classmethod
+    @tracing.traced("slt.matrix.from_coo")
     def from_coo(cls, rows, cols, vals, shape, **kw) -> "Matrix":
         return cls(CSR.from_coo(rows, cols, vals, shape), **kw)
 
@@ -138,7 +139,8 @@ class Matrix:
         if self._dia_offsets == ():
             from .formats.dia import dia_offsets
 
-            offs = dia_offsets(self.csr)
+            with tracing.span("slt.matrix.dia_probe"):
+                offs = dia_offsets(self.csr)
             self._dia_offsets = None if offs is None else tuple(int(o) for o in offs)
         return self._dia_offsets
 
@@ -171,23 +173,24 @@ class Matrix:
         if key not in self._ops:
             with self._lock:
                 if key not in self._ops:
-                    csr = self.T_csr() if transpose else self.csr
-                    # memory guard: raise E007 before packing, not OOM
-                    from .formats.streaming import check_memory_budget
+                    with tracing.span("slt.matrix.pack"):
+                        csr = self.T_csr() if transpose else self.csr
+                        # memory guard: raise E007 before packing, not OOM
+                        from .formats.streaming import check_memory_budget
 
-                    check_memory_budget(csr, kind, device=self.device)
-                    if kind == "dia":
-                        from .formats.dia import dia_from_csr
+                        check_memory_budget(csr, kind, device=self.device)
+                        if kind == "dia":
+                            from .formats.dia import dia_from_csr
 
-                        self._ops[key] = dia_from_csr(csr, dt, device=self.device)
-                    elif kind == "dense":
-                        self._ops[key] = _ell.dense_from_csr(csr, dt, self.device)
-                    elif kind == "ell":
-                        self._ops[key] = _ell.ell_from_csr(csr, dt, device=self.device)
-                    else:
-                        from .ops.csr_spmv import pack_csr
+                            self._ops[key] = dia_from_csr(csr, dt, device=self.device)
+                        elif kind == "dense":
+                            self._ops[key] = _ell.dense_from_csr(csr, dt, self.device)
+                        elif kind == "ell":
+                            self._ops[key] = _ell.ell_from_csr(csr, dt, device=self.device)
+                        else:
+                            from .ops.csr_spmv import pack_csr
 
-                        self._ops[key] = pack_csr(csr, self.device)
+                            self._ops[key] = pack_csr(csr, self.device)
         return self._ops[key]
 
     def reorder_rcm(self):

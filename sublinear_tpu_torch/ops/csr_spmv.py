@@ -38,7 +38,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import to_device
+from .. import tracing
+from ..config import to_device, to_host
 from ..formats.csr import CSR
 from ._kernels import library, ptr, raise_on, stream_of
 from .dense_fused import split_bf16
@@ -105,9 +106,10 @@ class CsrOperator:
         """``csr_spmv``'s partition of the rows (int32, on the operator's
         device): ``spmv_row_blocks`` of ``indptr``, built at first use."""
         if self._row_blocks is None:
-            self._row_blocks = to_device(
-                spmv_row_blocks(self.indptr.cpu().numpy()), torch.int32,
-                self.device)
+            with tracing.span("slt.csr.row_blocks"):
+                self._row_blocks = to_device(
+                    spmv_row_blocks(to_host(self.indptr)), torch.int32,
+                    self.device)
         return self._row_blocks
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:

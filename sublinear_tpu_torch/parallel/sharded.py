@@ -21,7 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import to_device
+from .. import tracing
+from ..config import to_device, to_host
 from ..errors import DimensionMismatchError
 from ..matrix import Matrix
 from ..solvers import base
@@ -32,8 +33,12 @@ _TINY = 1e-30
 CHAIN_MAX_RHS = 32
 
 
-def _col_norms(R: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.vector_norm(R, dim=0)
+def _col_norms(R: torch.Tensor) -> np.ndarray:
+    """The column 2-norms of R read back to the host: a blocking read,
+    counted as one ``host_syncs`` and its bytes in ``d2h_bytes``."""
+    norms = torch.linalg.vector_norm(R, dim=0)
+    tracing.count_read(norms.numel() * norms.element_size())
+    return norms.cpu().numpy()
 
 
 def _running(res: np.ndarray, thresholds: np.ndarray, k: int,
@@ -44,6 +49,7 @@ def _running(res: np.ndarray, thresholds: np.ndarray, k: int,
                 and np.all(np.isfinite(res)))
 
 
+@tracing.traced("slt.loop")
 def _cg_batch_run(op, B, thresholds, max_iters):
     """Jacobi-preconditioned CG over the columns of B (n, nrhs) from X = 0,
     with per-column ``thresholds``.  Returns (X, k, host column
@@ -56,7 +62,7 @@ def _cg_batch_run(op, B, thresholds, max_iters):
     rz = torch.sum(R * Z, dim=0)
     k = 0
     # the loop's one device-to-host sync per iteration
-    while _running(_col_norms(R).cpu().numpy(), thresholds, k, max_iters):
+    while _running(_col_norms(R), thresholds, k, max_iters):
         AP = op.matmat(P)
         alpha = rz / torch.clamp(torch.sum(P * AP, dim=0), min=_TINY)
         X = X + alpha * P
@@ -66,9 +72,10 @@ def _cg_batch_run(op, B, thresholds, max_iters):
         P = Z + rz_new / torch.clamp(rz, min=_TINY) * P
         rz = rz_new
         k += 1
-    return X, k, _col_norms(R).cpu().numpy()
+    return X, k, _col_norms(R)
 
 
+@tracing.traced("slt.loop")
 def _neumann_batch_run(op, B, thresholds, max_iters):
     """The batched Neumann series from X = 0 (the JAX package's
     ``x0_zero=True``), with per-column ``thresholds``.  The residual identity
@@ -83,11 +90,11 @@ def _neumann_batch_run(op, B, thresholds, max_iters):
     res = np.full(B.shape[1], torch.finfo(B.dtype).max / 4)
     while _running(res, thresholds, k, max_iters):
         RT = op.matmat(T) - diag * T
-        res = _col_norms(RT).cpu().numpy()
+        res = _col_norms(RT)
         T = -inv_d * RT
         X = X + T
         k += 1
-    return X, k, _col_norms(B - op.matmat(X)).cpu().numpy()
+    return X, k, _col_norms(B - op.matmat(X))
 
 
 def _chain_columns(op, Bt, thr_cols, options: SolverOptions):
@@ -104,6 +111,7 @@ def _chain_columns(op, Bt, thr_cols, options: SolverOptions):
     return torch.stack(xs, dim=1), max(ks), np.asarray(ress)
 
 
+@tracing.traced("slt.solve_batch")
 def solve_batch(
     matrix: Matrix,
     B,
@@ -168,7 +176,7 @@ def solve_batch(
             X, k, col_res = run(op, B_dev, thr_cols.astype(np_dtype),
                                 options.max_iterations)
 
-    X_host = X.detach().cpu().numpy().astype(np.float64)
+    X_host = to_host(X, np.float64)
     res = np.asarray(col_res, dtype=np.float64)
     return [
         SolverResult(

@@ -15,6 +15,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import tracing
+from ..config import host_float, to_host
 from ..errors import ConvergenceError, NumericalInstabilityError
 from ..matrix import Matrix
 from ..types import ConvergenceMode, ErrorBounds, SolverOptions, SolverResult, SolverStats
@@ -86,6 +88,7 @@ def running(res: float, change: float, k: int, max_iters: int, lims,
     return not_done and k < max_iters and math.isfinite(res) and res < huge
 
 
+@tracing.traced("slt.loop")
 def while_iterate(step_block: Callable, residual_of: Callable, state0, threshold, max_iters: int, check_every: int, x_of: Callable | None = None, mode: str = "residual", change_tol: float = 0.0):
     """Generic host-driven loop.
 
@@ -104,17 +107,18 @@ def while_iterate(step_block: Callable, residual_of: Callable, state0, threshold
     """
     res_t = residual_of(state0)
     lims = limits(res_t.dtype, threshold, change_tol)
-    res, change = float(res_t), math.inf
+    res, change = host_float(res_t), math.inf
     state, k = state0, 0
     while running(res, change, k, max_iters, lims, mode):
         new_state = step_block(state)
         if x_of is not None and mode in ("relative_change", "combined"):
             x_old, x_new = x_of(state), x_of(new_state)
-            change = float(torch.linalg.vector_norm(x_new - x_old)
-                           / torch.clamp(torch.linalg.vector_norm(x_old), min=1e-30))
+            change = host_float(
+                torch.linalg.vector_norm(x_new - x_old)
+                / torch.clamp(torch.linalg.vector_norm(x_old), min=1e-30))
         state = new_state
         k += check_every
-        res = float(residual_of(state))
+        res = host_float(residual_of(state))
     return state, k, res, change
 
 
@@ -205,7 +209,7 @@ def finalize(
     error_bounds=None,
 ) -> SolverResult:
     n = matrix.shape[0]
-    x = x_pad.detach().cpu().numpy().astype(np.float64)[:n]
+    x = to_host(x_pad, np.float64)[:n]
     res = float(residual)
     result = SolverResult(
         solution=x,

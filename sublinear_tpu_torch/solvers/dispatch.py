@@ -16,6 +16,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import tracing
 from ..analysis import analyze
 from ..errors import (
     DimensionMismatchError,
@@ -68,6 +69,7 @@ def select_method(matrix: Matrix, b: Optional[np.ndarray] = None) -> Method:
     return Method.NEUMANN if a.dominance_strength > 0.3 else Method.CG
 
 
+@tracing.traced("slt.solve")
 def solve(
     matrix,
     b,

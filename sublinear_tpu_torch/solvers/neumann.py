@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import host_float
 from ..matrix import Matrix
 from ..types import SolverOptions, SolverResult
 from . import base
@@ -52,8 +53,8 @@ def _neumann_run(op, b, x0, threshold, max_iters, check_every, norm_mode="l2", m
     x, term = state
     # geometric-tail data for the truncation error bound
     # (reference: src/solver/neumann.rs:321-347)
-    return (x, k, res, change, float(torch.linalg.vector_norm(term)),
-            float(torch.linalg.vector_norm(term0)))
+    return (x, k, res, change, host_float(torch.linalg.vector_norm(term)),
+            host_float(torch.linalg.vector_norm(term0)))
 
 
 def solve_neumann(matrix: Matrix, b, options: SolverOptions, raise_on_fail: bool = True) -> SolverResult:

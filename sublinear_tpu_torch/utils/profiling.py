@@ -9,7 +9,8 @@ asked for) and ``chips`` the number of cards torch sees (1 on the CPU).
 ``memory_info`` reads the caching allocator's counters
 (``torch.cuda.memory_stats``) and the card's free and total memory
 (``torch.cuda.mem_get_info``); a failed read raises.  ``device_trace``
-wraps ``torch.profiler`` and writes a chrome trace.
+wraps ``torch.profiler`` and writes a chrome trace, with the port's spans
+and counters (``tracing.py``).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from .. import config
+from .. import config, tracing
 
 
 @dataclasses.dataclass
@@ -105,17 +106,29 @@ class device_trace:
     (``trace.json``) into ``log_dir``; the card's kernels are traced when
     the device is a card.
 
-        with device_trace("traces/solve"):
+        with device_trace("traces/solve") as t:
             slt.solve(A, b)
+        t.counters  # also in traces/solve/counters.json
+
+    The trace holds the port's spans (``slt.solve``, ``slt.loop``,
+    ``slt.to_device``, ...: ``tracing.py``) on the clock of the device's
+    kernels and copies; open ``trace.json`` in Perfetto or
+    ``chrome://tracing``.  ``counters.json`` holds the port's counters over
+    the block (``h2d_bytes``, ``d2h_bytes``, ``host_syncs``), which start
+    from 0 on entry.
     """
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
         self.device = config.device()
         self.path = os.path.join(log_dir, "trace.json")
+        self.counters_path = os.path.join(log_dir, "counters.json")
+        self.counters: dict = {}
 
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile
+
+        tracing.reset()
 
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
@@ -128,8 +141,11 @@ class device_trace:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._prof.__exit__(*exc)
+        self.counters = tracing.counters()
         os.makedirs(self.log_dir, exist_ok=True)
         self._prof.export_chrome_trace(self.path)
+        with open(self.counters_path, "w") as f:
+            json.dump(self.counters, f, indent=1, sort_keys=True)
         return False
 
 

@@ -1,0 +1,185 @@
+"""The port's spans and counters (``sublinear_tpu_torch/tracing.py``): off
+without a profiler, and under one the spans of ``solve``, ``solve_batch``
+and personalized PageRank nested as the benchmark reads them, the copy and
+sync counts worked out from the code, and the same answers."""
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import sublinear_tpu_torch as slp
+from sublinear_tpu_torch import config, tracing
+from sublinear_tpu_torch.graph import personalized_pagerank
+from sublinear_tpu_torch.parallel.sharded import solve_batch
+from sublinear_tpu_torch.utils import profiling
+
+from torch_parity import dd_coo, port_on_cpu  # noqa: F401
+
+N = 4096  # the smallest size that the sparse kernels' route takes
+
+
+@pytest.fixture(scope="module")
+def system():
+    r, c, v = dd_coo(N, seed=11)
+    A = slp.Matrix.from_coo(r, c, v, (N, N), prefer="csr")
+    b = np.random.default_rng(1).uniform(-1, 1, N)
+    B = np.random.default_rng(2).uniform(-1, 1, (N, 40))
+    slp.solve(A, b, method="neumann")  # packs the operator once
+    solve_batch(A, B, slp.SolverOptions(), method="neumann")
+    return A, b, B
+
+
+@pytest.fixture(scope="module")
+def graph():
+    rng = np.random.default_rng(5)
+    r, c = rng.integers(0, N, 5 * N), rng.integers(0, N, 5 * N)
+    keep = r != c
+    # no preference: P^T's operator kind is chosen as the benchmark's is
+    return slp.Matrix.from_coo(r[keep], c[keep], np.ones(keep.sum()), (N, N))
+
+
+def _spans(prof):
+    """[(start ns, end ns, name)] of the port's spans, by start."""
+    return sorted((e.start_ns(), e.end_ns(), e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.name().startswith("slt.")
+                  and e.device_type() == torch.autograd.DeviceType.CPU)
+
+
+def _parents(spans):
+    """{span name: set of names of the innermost span around it (None at
+    the top)}."""
+    out = {}
+    for i, (s, e, name) in enumerate(spans):
+        around = [sp for j, sp in enumerate(spans)
+                  if j != i and sp[0] <= s and e <= sp[1]]
+        parent = max(around, key=lambda sp: sp[0])[2] if around else None
+        out.setdefault(name, set()).add(parent)
+    return out
+
+
+def _traced(fn):
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, _spans(prof), tracing.counters()
+
+
+def test_off_without_a_profiler(system):
+    A, b, _ = system
+    assert not tracing.enabled()
+    assert tracing.span("slt.solve") is tracing.span("slt.loop")
+    tracing.reset()
+    tracing.count("host_syncs", 3)
+    slp.solve(A, b, method="neumann")
+    config.to_device(np.ones(8), torch.float32)
+    assert tracing.counters() == {}
+
+
+def test_the_flag_read_is_the_one_a_profile_sets():
+    assert not tracing.enabled()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert tracing.enabled()
+        assert not isinstance(tracing.span("slt.x"), type(tracing._NO_SPAN))
+    assert not tracing.enabled()
+
+
+def test_solve_spans_and_syncs(system):
+    A, b, _ = system
+    r, spans, counts = _traced(lambda: slp.solve(A, b, method="neumann"))
+    names = [name for _, _, name in spans]
+    assert sorted(names) == sorted(["slt.solve", "slt.to_device", "slt.loop",
+                                    "slt.to_host"])
+    assert _parents(spans) == {"slt.solve": {None},
+                               "slt.to_device": {"slt.solve"},
+                               "slt.loop": {"slt.solve"},
+                               "slt.to_host": {"slt.solve"}}
+    chunks = r.iterations // slp.SolverOptions().check_every
+    assert chunks >= 2
+    # the initial residual, one per chunk, the two tail norms, x
+    assert counts["host_syncs"] == 1 + chunks + 2 + 1
+    assert counts["h2d_bytes"] == N * 4  # b in float32
+    assert counts["d2h_bytes"] == (1 + chunks + 2) * 4 + N * 4
+
+
+def test_solve_batch_spans_and_copies(system):
+    A, _, B = system
+    results, spans, counts = _traced(
+        lambda: solve_batch(A, B, slp.SolverOptions(), method="neumann"))
+    assert _parents(spans) == {"slt.solve_batch": {None},
+                               "slt.to_device": {"slt.solve_batch"},
+                               "slt.loop": {"slt.solve_batch"},
+                               "slt.to_host": {"slt.solve_batch"}}
+    k, cols = results[0].iterations, B.shape[1]
+    # k - 1 loop reads of the column norms, the final ones, and X
+    assert counts["host_syncs"] == k + 1
+    assert counts["h2d_bytes"] == B.size * 4
+    assert counts["d2h_bytes"] == k * cols * 4 + B.size * 4
+
+
+def test_pagerank_spans(graph):
+    _, spans, counts = _traced(
+        lambda: personalized_pagerank(graph, [3]))
+    parents = _parents(spans)
+    assert parents["slt.pagerank.inputs"] == {None}
+    assert parents["slt.pagerank.transition"] == {"slt.pagerank.inputs"}
+    assert parents["slt.matrix.from_coo"] == {"slt.pagerank.transition"}
+    assert parents["slt.matrix.dia_probe"] == {"slt.pagerank.inputs"}
+    assert parents["slt.matrix.pack"] == {"slt.pagerank.inputs"}
+    assert parents["slt.to_device"] == {"slt.matrix.pack",
+                                        "slt.pagerank.inputs"}
+    assert parents["slt.pagerank.run"] == {None}
+    assert parents["slt.loop"] == {"slt.pagerank.run"}
+    assert parents["slt.to_host"] == {None}  # the scores
+    assert counts["host_syncs"] >= 3
+
+
+def test_row_blocks_span(graph):
+    op = graph.op()
+    op._row_blocks = None
+    blocks, spans, counts = _traced(lambda: op.row_blocks)
+    assert _parents(spans) == {"slt.csr.row_blocks": {None},
+                               "slt.to_host": {"slt.csr.row_blocks"},
+                               "slt.to_device": {"slt.csr.row_blocks"}}
+    assert counts == {"host_syncs": 1, "d2h_bytes": (N + 1) * 4,
+                      "h2d_bytes": blocks.numel() * 4}
+
+
+def test_transfer_counters_by_hand():
+    def run():
+        t = config.to_device(np.arange(1000), torch.float64)
+        h = config.to_host(t[:10], np.float32)
+        return t, h, config.host_float(t[3])
+    (t, h, x), _, counts = _traced(run)
+    assert t.dtype == torch.float64 and h.dtype == np.float32 and x == 3.0
+    assert counts == {"h2d_bytes": 8000, "d2h_bytes": 80 + 8,
+                      "host_syncs": 2}
+
+
+def test_answers_are_bit_equal_traced_and_not(system, graph):
+    A, b, B = system
+    calls = [lambda: slp.solve(A, b, method="neumann").solution,
+             lambda: np.column_stack([r.solution for r in solve_batch(
+                 A, B, slp.SolverOptions(), method="neumann")]),
+             lambda: personalized_pagerank(graph, [7]).scores]
+    for call in calls:
+        plain = call()
+        traced, spans, _ = _traced(call)
+        assert spans
+        np.testing.assert_array_equal(traced, plain)
+
+
+def test_device_trace_writes_the_counters(system, tmp_path):
+    A, b, _ = system
+    tracing.count("host_syncs")  # not recording: nothing to carry over
+    with profiling.device_trace(str(tmp_path / "t")) as tr:
+        r = slp.solve(A, b, method="neumann")
+    saved = json.loads(Path(tr.counters_path).read_text())
+    assert saved == tr.counters
+    chunks = r.iterations // slp.SolverOptions().check_every
+    assert saved["host_syncs"] == 1 + chunks + 2 + 1
+    doc = json.loads(Path(tr.path).read_text())
+    assert "slt.solve" in {e.get("name") for e in doc["traceEvents"]}
