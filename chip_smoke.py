@@ -1151,7 +1151,9 @@ def graph_phase(torch, slt, K, launches, smi):
     print(f"pagerank: {check_pagerank(r, v, oracle, 'pagerank')}; launches "
           f"{counts} (1 + 6 per 5-step block); oracle {oracle_s:.2f} host s",
           flush=True)
-    # the host set-up (P^T, out-degrees, pack_csr) apart from the loop
+    # the host set-up apart from the loop: P^T, out-degrees and pack_csr
+    # (the graph's first call builds them), then a call that finds them
+    W._pagerank.clear()
     setup = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -1163,7 +1165,8 @@ def graph_phase(torch, slt, K, launches, smi):
     loop = warm_ms(torch, lambda: pagerank_run(opT, v_t, dang, DAMPING, 1e-6,
                                                1000), 3)
     whole = warm_ms(torch, lambda: G.pagerank(W), 2)
-    print(f"pagerank host set-up s {' '.join(f'{t:.3f}' for t in setup)}; "
+    print(f"pagerank host set-up s (build, cached) "
+          f"{' '.join(f'{t:.3f}' for t in setup)}; "
           f"iteration loop warm ms {' '.join(f'{t:.3f}' for t in loop)}; "
           f"whole call ms {' '.join(f'{t:.1f}' for t in whole)}", flush=True)
 

@@ -10,9 +10,11 @@ The system is solved by the power (Richardson) iteration
     x <- (1-alpha) v + alpha (P^T x + dangling_mass(x) v)
 
 the Neumann series of the PageRank system.  The column-stochastic P^T and
-the out-degrees are host NumPy passes, once per call; P^T is then packed
-as the matrix's device operator (for a large sparse graph the ``"csr"``
-route, so each step's product is one ``csr_spmv`` launch).  The iteration
+the out-degrees are host NumPy passes, once per adjacency and dtype; P^T is
+then packed as a device operator (for a large sparse graph the ``"csr"``
+route, so each step's product is one ``csr_spmv`` launch), and the operator
+and the dangling-node mask stay on the adjacency ``Matrix`` for its later
+calls.  Only the teleport vector is built per call.  The iteration
 runs on ``base.while_iterate`` in blocks of ``check_every = 5`` steps, as
 the JAX package's ``lax.while_loop`` does: each block enqueues its 5 steps
 and the residual ||step(x) - x|| (one more product) and reads that one
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..config import to_device, to_host
+from ..config import resolve_dtype, to_device, to_host
 from ..errors import InvalidParametersError
 from ..formats.ell import pad_vector
 from ..matrix import Matrix
@@ -56,15 +58,21 @@ class PageRankResult:
         }
 
 
+def _out_degrees(csr) -> np.ndarray:
+    out_deg = np.zeros(csr.shape[0])
+    np.add.at(out_deg, csr.row_of_entry(), csr.data)
+    return out_deg
+
+
 @tracing.traced("slt.pagerank.transition")
-def _transition_matrix(adjacency: Matrix) -> Matrix:
+def _transition_matrix(adjacency: Matrix, out_deg=None) -> Matrix:
     """Column-stochastic P^T as a Matrix on the adjacency's device (host
     side, one O(nnz) pass), with the adjacency's operator preference (P^T
-    has its pattern, transposed)."""
+    has its pattern, transposed).  ``out_deg``: the adjacency's row sums,
+    where the caller has them."""
     csr = adjacency.csr
-    out_deg = np.zeros(csr.shape[0])
-    rows = csr.row_of_entry()
-    np.add.at(out_deg, rows, csr.data)
+    if out_deg is None:
+        out_deg = _out_degrees(csr)
     safe = np.where(out_deg > 0, out_deg, 1.0)
     # P[i, j] = a_ij / outdeg_i ; we store P^T so matvec(P^T, x) is row-form
     r, c, v = csr.to_coo()
@@ -72,14 +80,37 @@ def _transition_matrix(adjacency: Matrix) -> Matrix:
                            prefer=adjacency._prefer, device=adjacency.device)
 
 
+def _transition_inputs(adjacency: Matrix, dtype):
+    """(P^T's device operator, the dangling-node mask) of ``adjacency`` in
+    ``dtype``: built on the first call and kept in ``adjacency._pagerank``,
+    so they die with the matrix.  Like its operators, they hold because a
+    Matrix's ``csr`` is not mutated after construction."""
+    key = str(resolve_dtype(dtype))
+    entry = adjacency._pagerank.get(key)
+    if entry is None:
+        with adjacency._lock:
+            entry = adjacency._pagerank.get(key)
+            if entry is None:
+                out_deg = _out_degrees(adjacency.csr)
+                opT = _transition_matrix(adjacency, out_deg).op(dtype)
+                dangling = np.zeros(opT.n_pad, dtype=bool)
+                dangling[:out_deg.size] = out_deg == 0
+                entry = (opT, to_device(dangling, torch.bool, adjacency.device))
+                adjacency._pagerank[key] = entry
+                tracing.count("pagerank_transition_builds")
+                return entry
+    tracing.count("pagerank_transition_hits")
+    return entry
+
+
 @tracing.traced("slt.pagerank.inputs")
 def pagerank_inputs(adjacency: Matrix, personalized=None, dtype=None):
     """The host set-up of one PageRank call: (P^T's device operator, the
-    teleport vector v, the dangling-node mask), on the adjacency's
-    device."""
+    teleport vector v, the dangling-node mask), on the adjacency's device.
+    The operator and the mask are the adjacency's own after its first call
+    in ``dtype`` (``_transition_inputs``); v is built and uploaded here."""
     n = adjacency.shape[0]
-    PT = _transition_matrix(adjacency)
-    opT = PT.op(dtype)
+    opT, dangling = _transition_inputs(adjacency, dtype)
 
     if personalized is not None:
         v = np.asarray(personalized, dtype=np.float64).reshape(-1)
@@ -90,15 +121,7 @@ def pagerank_inputs(adjacency: Matrix, personalized=None, dtype=None):
     else:
         v = np.full(n, 1.0 / n)
 
-    out_deg = np.zeros(n)
-    rows = adjacency.csr.row_of_entry()
-    np.add.at(out_deg, rows, adjacency.csr.data)
-    dangling = np.zeros(opT.n_pad, dtype=bool)
-    dangling[:n] = out_deg == 0
-
-    dev = adjacency.device
-    return (opT, pad_vector(v, opT.n_pad, opT.dtype, dev),
-            to_device(dangling, torch.bool, dev))
+    return opT, pad_vector(v, opT.n_pad, opT.dtype, adjacency.device), dangling
 
 
 @tracing.traced("slt.pagerank.run")

@@ -39,7 +39,11 @@ _KIND_ALIASES = {"xbar": "csr"}
 
 
 class Matrix:
-    """Square-or-rectangular sparse/dense matrix with device-operator cache."""
+    """Square-or-rectangular sparse/dense matrix with device-operator cache.
+
+    What is derived from ``csr`` (the operators, the DIA probe, the
+    transpose, PageRank's P^T) is built once and kept on the object, so
+    ``csr`` must not be mutated after construction."""
 
     def __init__(self, csr: CSR, prefer: Optional[str] = None, device=None):
         self.csr = csr
@@ -50,6 +54,8 @@ class Matrix:
         self._dia_offsets: Optional[tuple] = ()  # () = unprobed, None = ineligible
         self._dom_gap: Optional[float] = None
         self._transpose_csr: Optional[CSR] = None
+        # graph/pagerank.py's (P^T operator, dangling mask) per dtype
+        self._pagerank: dict = {}
         # serving layers share Matrix objects across threads
         self._lock = threading.Lock()
         # process-unique id for external caches (id() is reused after GC)

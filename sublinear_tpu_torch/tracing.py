@@ -19,6 +19,10 @@ names start with ``slt.``.  Counters:
   d2h_bytes   bytes read back from the device (``config.to_host``,
               ``config.host_float`` and the batch loops' column norms)
   host_syncs  blocking reads of device data: each of the reads above
+  pagerank_transition_builds  PageRank calls that built P^T's operator
+              and dangling mask (``graph/pagerank.py::_transition_inputs``)
+  pagerank_transition_hits    PageRank calls that found them built on
+              the adjacency
 
 ``utils/profiling.py::device_trace`` resets the counters on entry and
 writes them beside its trace.  This module imports only torch, so every

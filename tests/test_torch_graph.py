@@ -161,6 +161,116 @@ def test_pagerank_reads_once_per_block(monkeypatch):
     assert calls["matvec"] == 1 + (CHECK_EVERY + 1) * k // CHECK_EVERY
 
 
+def _count_builds(monkeypatch):
+    """Count the calls of ``_transition_matrix``: P^T's builds."""
+    import importlib
+
+    # the package exports the function ``pagerank`` under the module's name
+    P = importlib.import_module("sublinear_tpu_torch.graph.pagerank")
+    builds = []
+    plain = P._transition_matrix
+
+    def counting(*args, **kwargs):
+        builds.append(1)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(P, "_transition_matrix", counting)
+    return builds
+
+
+PAGERANK_CALLS = {
+    "pagerank": lambda m: G.pagerank(m),
+    "personalized": lambda m: G.personalized_pagerank(m, [3], epsilon=1e-8),
+    "personalized_again": lambda m: G.personalized_pagerank(m, [7, 20]),
+}
+
+
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_pagerank_on_a_kept_graph_is_bit_equal_to_a_fresh_one(graph,
+                                                              monkeypatch):
+    """Calls on one Matrix (P^T built by the first, then found) answer bit
+    for bit as the same calls on a fresh Matrix of the same COO each."""
+    builds = _count_builds(monkeypatch)
+    _, kept = GRAPHS[graph]()
+    for name, call in PAGERANK_CALLS.items():
+        got = call(kept)
+        want = call(GRAPHS[graph]()[1])
+        np.testing.assert_array_equal(got.scores, want.scores, err_msg=name)
+        assert (got.iterations, got.residual) == (want.iterations,
+                                                  want.residual)
+    # one build on the kept graph, one on each fresh graph
+    assert len(builds) == 1 + len(PAGERANK_CALLS)
+
+
+def test_pagerank_builds_once_per_dtype(monkeypatch):
+    builds = _count_builds(monkeypatch)
+    _, p = random_digraph(60, 0.12, seed=1)  # the dense route keeps dtype
+    f32 = pagerank_inputs(p, [1.0] * 60)
+    assert pagerank_inputs(p, [1.0] * 60)[0] is f32[0]
+    assert G.pagerank(p).scores.shape == (60,) and len(builds) == 1
+    f64 = pagerank_inputs(p, None, torch.float64)
+    assert len(builds) == 2 and f64[0] is not f32[0]
+    assert f64[0].dtype == torch.float64 and f32[0].dtype == torch.float32
+    assert pagerank_inputs(p, None, "float64")[0] is f64[0]
+    assert pagerank_inputs(p)[2] is f32[2] and len(builds) == 2
+    assert sorted(p._pagerank) == ["torch.float32", "torch.float64"]
+    # the counters, under a profiler: a miss on a fresh graph, then a hit
+    from torch.profiler import ProfilerActivity, profile
+    from sublinear_tpu_torch import tracing
+
+    tracing.reset()
+    _, fresh = random_digraph(60, 0.12, seed=1)
+    with profile(activities=[ProfilerActivity.CPU]):
+        G.personalized_pagerank(fresh, [3])
+        G.personalized_pagerank(fresh, [4])
+    counts = tracing.counters()
+    tracing.reset()
+    assert counts["pagerank_transition_builds"] == 1
+    assert counts["pagerank_transition_hits"] == 1
+
+
+def test_pagerank_cache_dies_with_the_matrix_and_builds_once_across_threads(
+        monkeypatch):
+    import gc
+    import sys
+    import threading
+    import weakref
+
+    _, p = sparse_digraph(n=5000, seed=2)
+    G.pagerank(p)
+    opT = pagerank_inputs(p)[0]
+    refs = weakref.ref(p), weakref.ref(opT)
+    del p, opT
+    gc.collect()
+    assert refs[0]() is None and refs[1]() is None
+
+    builds = _count_builds(monkeypatch)
+    _, cold = sparse_digraph(n=5000, seed=2)
+    threads = 8
+    start = threading.Barrier(threads)
+    got = [None] * threads
+
+    def query(i):
+        start.wait(timeout=60)
+        got[i] = G.personalized_pagerank(cold, [11])
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=query, args=(i,))
+                   for i in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(w.is_alive() for w in workers)
+    assert len(builds) == 1 and len(cold._pagerank) == 1
+    for r in got[1:]:
+        np.testing.assert_array_equal(r.scores, got[0].scores)
+
+
 # ------------------------------------------------------------ resistance
 
 def test_grounded_laplacian_bit_identical():

@@ -32,13 +32,17 @@ def system():
     return A, b, B
 
 
-@pytest.fixture(scope="module")
-def graph():
+def _graph():
     rng = np.random.default_rng(5)
     r, c = rng.integers(0, N, 5 * N), rng.integers(0, N, 5 * N)
     keep = r != c
     # no preference: P^T's operator kind is chosen as the benchmark's is
     return slp.Matrix.from_coo(r[keep], c[keep], np.ones(keep.sum()), (N, N))
+
+
+@pytest.fixture(scope="module")
+def graph():
+    return _graph()
 
 
 def _spans(prof):
@@ -120,7 +124,14 @@ def test_solve_batch_spans_and_copies(system):
     assert counts["d2h_bytes"] == k * cols * 4 + B.size * 4
 
 
-def test_pagerank_spans(graph):
+# the spans of P^T's build, which a graph's first PageRank call makes
+TRANSITION_SPANS = ("slt.pagerank.transition", "slt.matrix.from_coo",
+                    "slt.matrix.dia_probe", "slt.matrix.pack",
+                    "slt.csr.row_blocks")
+
+
+def test_pagerank_spans():
+    graph = _graph()  # a fresh graph: its first call builds P^T
     _, spans, counts = _traced(
         lambda: personalized_pagerank(graph, [3]))
     parents = _parents(spans)
@@ -135,6 +146,20 @@ def test_pagerank_spans(graph):
     assert parents["slt.loop"] == {"slt.pagerank.run"}
     assert parents["slt.to_host"] == {None}  # the scores
     assert counts["host_syncs"] >= 3
+    assert counts["pagerank_transition_builds"] == 1
+    assert "pagerank_transition_hits" not in counts
+
+
+def test_pagerank_spans_on_a_hit():
+    graph = _graph()
+    first = personalized_pagerank(graph, [3])
+    again, spans, counts = _traced(lambda: personalized_pagerank(graph, [3]))
+    names = {name for _, _, name in spans}
+    assert names.isdisjoint(TRANSITION_SPANS), names
+    assert _parents(spans)["slt.to_device"] == {"slt.pagerank.inputs"}  # v
+    assert counts["pagerank_transition_hits"] == 1
+    assert "pagerank_transition_builds" not in counts
+    np.testing.assert_array_equal(again.scores, first.scores)
 
 
 def test_row_blocks_span(graph):
