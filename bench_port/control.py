@@ -7,9 +7,15 @@ port's float32 (the port has no lower path of its own).
 
 Runs the cell through the whole harness (data, window, check) once per seed
 in one process, with ``impl`` answering every request, and prints each
-run's compared numbers; a run must come out ``correct`` false.  The
-Neumann control sums a fixed 30 terms, the PageRank control takes 100
-steps: enough to reach bfloat16's own level, which no stop rule can pass.
+run's compared numbers; a run must come out ``correct`` false.
+
+The three entries of ``entries.ENTRIES`` have their controls here, whatever
+the configuration's kind: the Neumann control sums a fixed 30 terms
+(``solve``, ``solve_batch``), the PageRank control takes 100 steps
+(``personalized_pagerank``), enough to reach bfloat16's own level, which no
+stop rule can pass.  An entry of ``calls/<entry>.py`` brings its own
+``control(data, cell, device)`` in that file; without one its cells cannot
+be validated, and the control refuses to run.
 """
 import argparse
 import json
@@ -24,7 +30,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from bench_port import harness, reference  # noqa: E402
+from bench_port import entries, harness, lookup, reference  # noqa: E402
 
 DTYPE = torch.bfloat16
 NEUMANN_TERMS = 30
@@ -38,8 +44,16 @@ def _answer(x, iterations):
 
 def control(data, cell, device):
     """The reference in bfloat16, as ``harness.run_cell``'s ``impl``."""
-    A = reference.Coo.of(data, device, DTYPE)
     entry = cell.traffic["entry"]
+    if entry not in entries.ENTRIES:
+        own = getattr(lookup.load(lookup.CALLS_DIR, entry), "control", None)
+        if own is None:
+            raise SystemExit(
+                f"{lookup.CALLS_DIR / entry}.py defines no control(data, "
+                f"cell, device): the cell {cell.name} cannot be validated "
+                "without one")
+        return own(data, cell, device)
+    A = reference.Coo.of(data, device, DTYPE)
     if entry == "personalized_pagerank":
         T = reference.Transition.of(A)
         damping = float(cell.config["damping"])

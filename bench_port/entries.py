@@ -1,11 +1,13 @@
 """The general traffic generator's entries: what one request is.
 
-A traffic file names its ``entry``; ``ENTRIES`` maps the name to a class
+A traffic file names its ``entry``; ``ENTRIES`` maps the three names here,
+and ``find`` any other to the ``ENTRY`` of ``calls/<entry>.py``: a class
 that hands the configuration's data to the port through its public API
 (``Matrix.from_coo``, ``solve``, ``parallel.sharded.solve_batch``,
 ``graph.personalized_pagerank``), makes the pool of inputs from the run's
 generator, issues request ``i``, and checks kept answers against the plain
-reference (``reference.py``) once the window has closed.
+reference (``reference.py``, or a file of the entry's own) once the window
+has closed.
 
 ``impl``, where given, is called in the port's place with the same
 arguments: ``control.py`` passes the reference in a lower precision.
@@ -16,7 +18,7 @@ import dataclasses
 
 import numpy as np
 
-from . import gen, reference
+from . import gen, lookup, reference
 
 
 @dataclasses.dataclass
@@ -152,3 +154,14 @@ class PersonalizedPageRank(Entry):
 
 ENTRIES = {"solve": Solve, "solve_batch": SolveBatch,
            "personalized_pagerank": PersonalizedPageRank}
+
+
+def find(name: str) -> type[Entry]:
+    """The class of entry ``name``: ``ENTRIES``, else the ``ENTRY`` of
+    ``calls/<name>.py``, which has to be a subclass of ``Entry``."""
+    cls = lookup.find(ENTRIES, "entries.ENTRIES", lookup.CALLS_DIR, name,
+                      "ENTRY")
+    if not (isinstance(cls, type) and issubclass(cls, Entry)):
+        raise TypeError(f"ENTRY of {lookup.CALLS_DIR / name}.py is not a "
+                        f"subclass of entries.Entry: {cls!r}")
+    return cls

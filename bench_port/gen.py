@@ -7,10 +7,13 @@ follows ``sublinear_tpu_torch/generate.py::random_sparse`` (the reference's
 ``random-sparse`` recipe) and Graph500's R-MAT generator, but none of the
 port's code runs here.
 
-A configuration file names its ``kind``; ``KINDS`` maps each kind to its
-generator.  Every generator returns a ``Data``: the COO triplets as the port
-receives them (where a generator repeats an entry, both the port and the
-reference sum the repeats), with the stored-entry count after summing.
+A configuration file names its ``kind``; ``KINDS`` maps the two kinds here
+to their generators, and any other kind is the file ``kinds/<kind>.py``,
+whose ``make(cfg, g, device)`` may use this module's helpers
+(``generator``, ``_to_data``).  Every generator returns a ``Data``: the COO
+triplets as the port receives them (where a generator repeats an entry, both
+the port and the reference sum the repeats), with the stored-entry count
+after summing.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from . import lookup
 
 SEED_MASK = (1 << 64) - 1
 
@@ -111,8 +116,14 @@ def rmat(cfg: dict, g: torch.Generator, device) -> Data:
 KINDS = {"random-sparse": random_sparse, "rmat": rmat}
 
 
+def kind(name: str):
+    """The generator of kind ``name``: ``KINDS``, else the ``make`` of
+    ``kinds/<name>.py``."""
+    return lookup.find(KINDS, "gen.KINDS", lookup.KINDS_DIR, name, "make")
+
+
 def make(cfg: dict, g: torch.Generator, device) -> Data:
-    return KINDS[cfg["kind"]](cfg, g, device)
+    return kind(cfg["kind"])(cfg, g, device)
 
 
 def uniform_block(shape, g: torch.Generator, device) -> np.ndarray:

@@ -1,13 +1,9 @@
 """One run of one cell: data from the seed, set-up, the measured window, the
 check against the plain reference, and the result line.
 
-Everything that belongs to one configuration, traffic mix or metric is a
-file found by its name in ``BENCHMARK.json``:
-
-  configs/<config>.json   sizes, source, guarantee and the checks' limits
-  traffic/<traffic>.json  the entry, the pool, warm-up, sample and spans
-  metrics/<metric>.py     ``read(run)``: the number, or None if there is
-                          nothing to read
+Everything that belongs to one configuration, traffic mix, metric, data
+generator or request kind is a file found by its name in ``BENCHMARK.json``
+(``lookup.py`` says where).
 """
 from __future__ import annotations
 
@@ -16,7 +12,6 @@ import dataclasses
 import functools
 import gc
 import importlib
-import importlib.util
 import json
 import time
 from pathlib import Path
@@ -24,7 +19,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import entries, gen, trace as trace_mod
+from . import entries, gen, lookup, trace as trace_mod
 
 HERE = Path(__file__).resolve().parent
 BENCHMARK = HERE.parent / "BENCHMARK.json"
@@ -45,8 +40,13 @@ def load_cell(name: str, benchmark: Path = BENCHMARK) -> Cell:
     if name not in cells:
         raise SystemExit(f"unknown workload {name!r}: {sorted(cells)}")
     w = cells[name]
-    config = json.loads((HERE / "configs" / f"{w['config']}.json").read_text())
-    traffic = json.loads((HERE / "traffic" / f"{w['traffic']}.json").read_text())
+    config = json.loads(
+        (lookup.CONFIGS_DIR / f"{w['config']}.json").read_text())
+    traffic = json.loads(
+        (lookup.TRAFFIC_DIR / f"{w['traffic']}.json").read_text())
+    # a kind or an entry that is nowhere to be found fails before any data
+    gen.kind(config["kind"])
+    entries.find(traffic["entry"])
     e2e = [m for m in bench["end_to_end"] if name in m.get("workloads", [name])]
     reported = {m["name"] for m in e2e}
     layer = [m for m in bench["per_layer"]
@@ -60,12 +60,7 @@ def load_cell(name: str, benchmark: Path = BENCHMARK) -> Cell:
 
 
 def reader(metric: str):
-    path = HERE / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        "bench_port_metric_" + metric.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return lookup.load(lookup.METRICS_DIR, metric).read
 
 
 @dataclasses.dataclass
@@ -177,7 +172,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     device = torch.device(device)
     g = gen.generator(seed, device)
     data = gen.make(config, g, device)
-    entry = entries.ENTRIES[traffic["entry"]](
+    entry = entries.find(traffic["entry"])(
         data, config, traffic, g, device,
         impl(data, cell, device) if impl else None)
     if device.type == "cuda":

@@ -9,7 +9,8 @@ From the root of a checkout.  The cell is an entry of ``workloads`` in
 output is the result (JSON); the checks against the plain reference are the
 last lines of standard error.  Without a CUDA card, or with fewer cards than
 the cell asks for, it exits 2 and prints no result: it never falls back to
-the CPU.
+the CPU.  A process that has loaded JAX or the JAX package by the time
+the window has closed exits 1 and prints no result.
 """
 import time
 
@@ -29,6 +30,8 @@ CACHES = {"TRITON_CACHE_DIR": BUILD / "triton",
           "TORCH_EXTENSIONS_DIR": BUILD / "torch_extensions",
           "PYTORCH_KERNEL_CACHE_PATH": BUILD / "torch_kernels",
           "CUDA_CACHE_PATH": BUILD / "cuda_cache"}
+# top-level module names the port's benchmark never loads
+JAX_MODULES = ("jax", "jaxlib", "flax", "sublinear_tpu")
 
 
 def parse(argv):
@@ -38,6 +41,14 @@ def parse(argv):
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     return p.parse_args(argv)
+
+
+def jax_loaded(modules=None) -> list:
+    """The names of ``JAX_MODULES`` among the top-level names of
+    ``modules`` (``sys.modules``), compared whole."""
+    names = {name.split(".", 1)[0]
+             for name in (sys.modules if modules is None else modules)}
+    return sorted(names & set(JAX_MODULES))
 
 
 def main(argv=None) -> int:
@@ -60,6 +71,11 @@ def main(argv=None) -> int:
         return 2
     line = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace),
                             "cuda", T0)
+    found = jax_loaded()
+    if found:
+        print(f"bench_port: the run loaded {', '.join(found)}; the port's "
+              "benchmark never runs JAX or the JAX package", file=sys.stderr)
+        return 1
     print(f"correct {line['correct']}", file=sys.stderr)
     for name, c in line["checks"].items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}",

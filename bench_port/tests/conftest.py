@@ -9,10 +9,13 @@ import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-# small sizes of each configuration: above the port's dense threshold
-# (10,240), so the sparse routes run as they do at full size
-SMALL = {"rsparse-100k": {"n": 12000, "density": 5e-4},
-         "webgraph-rmat-1m": {"n": 4000, "edges": 20000, "scale": 12}}
+
+def small(config: dict) -> dict:
+    """``config`` at its small size, the configuration's own ``"small"``
+    key laid over it.  Each configuration picks its small size above the
+    port's dense threshold (10,240) where it has one, so that the sparse
+    routes run as they do at full size."""
+    return {**config, **config["small"]}
 
 
 @pytest.fixture(autouse=True)
@@ -22,13 +25,15 @@ def port_on_cpu(monkeypatch):
 
 @pytest.fixture
 def small_run():
-    """run(cell name, seed=..., traced=..., impl=...) -> result line of one
-    short run of the cell at its small size on the CPU."""
+    """run(cell name, seed=..., traced=..., impl=..., benchmark=...) ->
+    result line of one short run of the cell at its small size on the
+    CPU; ``benchmark`` is the ``BENCHMARK.json`` that names the cell."""
     from bench_port import harness
 
-    def run(name, seed=12345, traced=False, impl=None, seconds=0.3):
-        cell = harness.load_cell(name)
-        cell.config.update(SMALL[cell.config["name"]])
+    def run(name, seed=12345, traced=False, impl=None, seconds=0.3,
+            benchmark=harness.BENCHMARK):
+        cell = harness.load_cell(name, benchmark)
+        cell.config = small(cell.config)
         cell.traffic["trace_requests"] = 3
         return harness.run_cell(cell, seed, seconds, traced, "cpu",
                                 time.perf_counter(), impl=impl)

@@ -11,7 +11,6 @@ from torch.profiler import ProfilerActivity, profile
 
 from bench_port import gen, harness, program
 from bench_port.trace import REQUEST, WINDOW, DeviceOp, Trace
-from conftest import SMALL
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -144,7 +143,7 @@ def test_traced_line_reads_the_spans_inside_the_port(small_run, name):
         assert 0 < m["solve.self_ms"]["value"] < m["solve.host_ms"]["value"]
     if name == "rsparse-100k.batch128":
         # B up and X down at the small size, float32: 8 bytes an entry
-        n = SMALL["rsparse-100k"]["n"]
+        n = harness.load_cell(name).config["small"]["n"]
         assert m["batch.copy_mb"]["value"] >= 8 * n * 128 / 1e6
     if name == "webgraph-rmat-1m.ppr":
         assert m["ppr.row_blocks_ms"]["value"] == 0.0  # no kernel here

@@ -12,20 +12,21 @@ import torch
 
 from bench_port import gen, harness, roofline, stats
 from bench_port.trace import REQUEST, WINDOW, DeviceOp, Trace
-from conftest import SMALL
+from conftest import small
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
+CONFIGS = sorted(c["name"] for c in BENCH["configs"])
 
 
 def _data(config_name, seed):
-    cfg = json.loads((ROOT / "bench_port" / "configs" / f"{config_name}.json").read_text())
-    cfg.update(SMALL[config_name])
+    cfg = small(json.loads(
+        (ROOT / "bench_port" / "configs" / f"{config_name}.json").read_text()))
     return gen.make(cfg, gen.generator(seed, "cpu"), "cpu"), cfg
 
 
-@pytest.mark.parametrize("config_name", sorted(SMALL))
+@pytest.mark.parametrize("config_name", CONFIGS)
 def test_generator_is_deterministic_per_seed(config_name):
     seed = 2**40 + 3  # more than 32 bits
     a, cfg = _data(config_name, seed)
@@ -198,3 +199,12 @@ def test_run_refuses_without_a_card():
     assert proc.returncode == 2
     assert proc.stdout.strip() == ""
     assert "no CUDA card" in proc.stderr
+
+
+def test_run_names_jax_or_the_jax_package_by_whole_top_level_names():
+    from bench_port import run
+
+    assert run.jax_loaded({"numpy": 1, "sublinear_tpu_torch.solvers": 1,
+                           "jaxtyping": 1}) == []
+    assert run.jax_loaded({"jax.numpy": 1, "sublinear_tpu.ops": 1,
+                           "flax": 1}) == ["flax", "jax", "sublinear_tpu"]
