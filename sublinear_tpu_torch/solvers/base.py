@@ -49,7 +49,12 @@ def host_norm(v, mode: str) -> float:
         return float(np.abs(v).sum())
     if mode == "max":
         return float(np.abs(v).max()) if v.size else 0.0
-    return float(np.linalg.norm(v))
+    # einsum, not np.linalg.norm: NumPy's BLAS splits a long dot over all
+    # its threads, which spin between calls, so a threshold taken once a
+    # solve would keep every core of the host busy beside the solver's own
+    # host thread
+    flat = v.reshape(-1)
+    return float(np.sqrt(np.einsum("i,i->", flat, flat)))
 
 
 def threshold_for(b: np.ndarray, options: SolverOptions) -> float:

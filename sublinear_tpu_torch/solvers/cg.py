@@ -10,6 +10,10 @@ host loops with the same recurrences and stop rules:
 - ``_cg_run`` and ``_bicgstab_run`` run one step per pass and read the
   residual (and the iterate change) back after every step: one host sync
   per iteration.
+
+Each loop is span ``slt.loop`` and counts every blocking read it makes
+(``tracing.py``); ``_cg_chain_run`` also counts its chunks in
+``cg_chain_calls``.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import math
 import numpy as np
 import torch
 
+from .. import tracing
+from ..config import host_float
 from ..matrix import Matrix
 from ..ops.csr_spmv import dot64
 from ..types import SolverOptions, SolverResult
@@ -26,6 +32,14 @@ from . import base
 _TINY = 1e-30
 
 
+def _read_pair(a: torch.Tensor, b: torch.Tensor) -> list:
+    """``[float(a), float(b)]`` of two 0-d tensors in one blocking read."""
+    pair = torch.stack((a, b))
+    tracing.count_read(pair.numel() * pair.element_size())
+    return pair.tolist()
+
+
+@tracing.traced("slt.loop")
 def _cg_run(op, b, x0, threshold, max_iters, precondition, mode="residual",
             change_tol=0.0):
     inv_d = op.inv_diag
@@ -39,7 +53,7 @@ def _cg_run(op, b, x0, threshold, max_iters, precondition, mode="residual",
     rz = torch.dot(r, z)
     res_t = torch.linalg.vector_norm(r)
     lims = base.limits(res_t.dtype, threshold, change_tol)
-    res, change, k = float(res_t), math.inf, 0
+    res, change, k = host_float(res_t), math.inf, 0
     while base.running(res, change, k, max_iters, lims, mode):
         Ap = op.matvec(p)
         alpha = rz / torch.clamp(torch.dot(p, Ap), min=_TINY)
@@ -53,11 +67,11 @@ def _cg_run(op, b, x0, threshold, max_iters, precondition, mode="residual",
         rz = rz_new
         k += 1
         # the loop's one device-to-host sync
-        res, change = torch.stack(
-            (torch.linalg.vector_norm(r), change_t)).tolist()
+        res, change = _read_pair(torch.linalg.vector_norm(r), change_t)
     return x, k, res, change
 
 
+@tracing.traced("slt.loop")
 def _cg_chain_run(op, b, x0, threshold, max_iters, check_every):
     """Chunked chain PCG: a head chunk of ``2 * check_every`` steps (if not
     yet converged), then tail chunks of ``max(2, check_every // 2)``, each one
@@ -68,18 +82,20 @@ def _cg_chain_run(op, b, x0, threshold, max_iters, check_every):
     state = (x0, r, z, dot64(r, z))
     res_t = torch.linalg.vector_norm(r)
     lims = base.limits(res_t.dtype, threshold)
-    res, k = float(res_t), 0
+    res, k = host_float(res_t), 0
     chunk = 2 * check_every
     while base.running(res, math.inf, k, max_iters, lims):
         x, r, p, rz, res2 = op.cg_chain(*state, chunk)
+        tracing.count("cg_chain_calls")
         state = (x, r, p, rz)
         k += chunk
         # sqrt in f32, as the JAX loop takes it
-        res = float(np.sqrt(np.float32(res2.item())))
+        res = float(np.sqrt(np.float32(host_float(res2))))
         chunk = max(2, check_every // 2)
     return state[0], k, res
 
 
+@tracing.traced("slt.loop")
 def _bicgstab_run(op, b, x0, threshold, max_iters, mode="residual",
                   change_tol=0.0):
     def guard(v):  # v where |v| > TINY, else TINY
@@ -92,7 +108,7 @@ def _bicgstab_run(op, b, x0, threshold, max_iters, mode="residual",
     rho = alpha = omega = one
     res_t = torch.linalg.vector_norm(r)
     lims = base.limits(res_t.dtype, threshold, change_tol)
-    res, change, k = float(res_t), math.inf, 0
+    res, change, k = host_float(res_t), math.inf, 0
     while base.running(res, change, k, max_iters, lims, mode):
         rho_new = torch.dot(rhat, r)
         beta = (rho_new / guard(rho)) * (alpha / guard(omega))
@@ -111,8 +127,7 @@ def _bicgstab_run(op, b, x0, threshold, max_iters, mode="residual",
         rho = rho_new
         k += 1
         # the loop's one device-to-host sync
-        res, change = torch.stack(
-            (torch.linalg.vector_norm(r), change_t)).tolist()
+        res, change = _read_pair(torch.linalg.vector_norm(r), change_t)
     return x, k, res, change
 
 

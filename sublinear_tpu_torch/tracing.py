@@ -17,8 +17,11 @@ names start with ``slt.``.  Counters:
   h2d_bytes   bytes of the device tensors made from host arrays
               (``config.to_device``)
   d2h_bytes   bytes read back from the device (``config.to_host``,
-              ``config.host_float`` and the batch loops' column norms)
+              ``config.host_float``, the batch loops' column norms and
+              the per-step CG and BiCGSTAB loops' residual and change)
   host_syncs  blocking reads of device data: each of the reads above
+  cg_chain_calls  chunks of CG steps run as one ``op.cg_chain`` call
+              (``solvers/cg.py::_cg_chain_run``)
   pagerank_transition_builds  PageRank calls that built P^T's operator
               and dangling mask (``graph/pagerank.py::_transition_inputs``)
   pagerank_transition_hits    PageRank calls that found them built on

@@ -126,3 +126,43 @@ def test_cpu_solve_launches_no_kernel():
     before = dict(K.LAUNCHES)
     slp.solve(p, np.ones(n), method="neumann", epsilon=1e-6)
     assert K.LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape", [(100_000,), (300, 7), (0,)])
+def test_host_norm_l2_matches_the_jax_package(shape):
+    """The threshold's 2-norm agrees with the JAX package's
+    (``np.linalg.norm``) to 1e-14 relative: both add the same squares, in
+    another order."""
+    from sublinear_tpu.solvers import base as jbase
+    from sublinear_tpu_torch.solvers import base as pbase
+
+    v = np.random.default_rng(17).uniform(-1.0, 1.0, shape)
+    want = jbase.host_norm(v, "l2")
+    assert pbase.host_norm(v, "l2") == pytest.approx(want, rel=1e-14, abs=0.0)
+
+
+def test_host_norm_keeps_no_thread_busy():
+    """A solve's threshold norm runs on the calling thread alone: the
+    process's CPU time over a run of solve-paced norms of a 100k vector stays
+    near the wall time (a BLAS dot woke every core of the host, whose
+    threads then spun between calls)."""
+    import resource
+    import time
+
+    from sublinear_tpu_torch.solvers import base as pbase
+
+    v = np.random.default_rng(5).uniform(-1.0, 1.0, 100_000)
+    time.sleep(0.5)  # threads that earlier BLAS calls woke go back to sleep
+
+    def cpu():
+        r = resource.getrusage(resource.RUSAGE_SELF)
+        return r.ru_utime + r.ru_stime
+
+    c0, t0 = cpu(), time.perf_counter()
+    for _ in range(300):
+        pbase.host_norm(v, "l2")
+        pause = time.perf_counter() + 1e-3  # the rest of a solve's host work
+        while time.perf_counter() < pause:
+            pass
+    wall = time.perf_counter() - t0
+    assert cpu() - c0 <= 2.0 * wall, (cpu() - c0, wall)

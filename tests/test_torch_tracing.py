@@ -16,7 +16,7 @@ from sublinear_tpu_torch.graph import personalized_pagerank
 from sublinear_tpu_torch.parallel.sharded import solve_batch
 from sublinear_tpu_torch.utils import profiling
 
-from torch_parity import dd_coo, port_on_cpu  # noqa: F401
+from torch_parity import dd_coo, port_on_cpu, spd_coo  # noqa: F401
 
 N = 4096  # the smallest size that the sparse kernels' route takes
 
@@ -208,3 +208,65 @@ def test_device_trace_writes_the_counters(system, tmp_path):
     assert saved["host_syncs"] == 1 + chunks + 2 + 1
     doc = json.loads(Path(tr.path).read_text())
     assert "slt.solve" in {e.get("name") for e in doc["traceEvents"]}
+
+
+@pytest.fixture(scope="module")
+def spd_system():
+    r, c, v = spd_coo(N, seed=13)
+    A = slp.Matrix.from_coo(r, c, v, (N, N), prefer="csr")
+    b = np.random.default_rng(3).uniform(-1, 1, N)
+    slp.solve(A, b, method="cg")  # packs the operator, analyzes A once
+    return A, b
+
+
+def _chunks(iterations, check_every):
+    """The chain's chunks for ``iterations``: a head of 2 * check_every
+    steps, then chunks of max(2, check_every // 2)."""
+    head, tail = 2 * check_every, max(2, check_every // 2)
+    return 1 + -(-max(0, iterations - head) // tail)
+
+
+def test_cg_chain_spans_syncs_and_chunks(spd_system):
+    A, b = spd_system
+    r, spans, counts = _traced(lambda: slp.solve(A, b, method="cg"))
+    assert r.method == "conjugate-gradient"
+    assert _parents(spans) == {"slt.solve": {None},
+                               "slt.to_device": {"slt.solve"},
+                               "slt.loop": {"slt.solve"},
+                               "slt.to_host": {"slt.solve"}}
+    chunks = _chunks(r.iterations, slp.SolverOptions().check_every)
+    assert chunks >= 1
+    assert counts["cg_chain_calls"] == chunks
+    # the initial residual, ||r||^2 once per chunk, x
+    assert counts["host_syncs"] == 1 + chunks + 1
+    assert counts["d2h_bytes"] == (1 + chunks) * 4 + N * 4
+
+
+@pytest.mark.parametrize("method,options", [("cg", {"check_every": 1}),
+                                            ("bicgstab", {})])
+def test_per_step_krylov_loops_count_one_read_a_step(spd_system, method,
+                                                     options):
+    A, b = spd_system
+    r, spans, counts = _traced(
+        lambda: slp.solve(A, b, method=method, **options))
+    assert r.method == {"cg": "conjugate-gradient"}.get(method, method)
+    assert _parents(spans)["slt.loop"] == {"slt.solve"}
+    k = r.iterations
+    assert k >= 2 and "cg_chain_calls" not in counts
+    # the initial residual, (residual, change) once per step, x
+    assert counts["host_syncs"] == 1 + k + 1
+    assert counts["d2h_bytes"] == 4 + k * 2 * 4 + N * 4
+
+
+@pytest.mark.parametrize("method,options", [("cg", {}), ("cg", {"check_every": 1}),
+                                            ("bicgstab", {})])
+def test_krylov_answers_are_bit_equal_traced_and_not(spd_system, method,
+                                                     options):
+    A, b = spd_system
+    plain = slp.solve(A, b, method=method, **options)
+    traced, spans, _ = _traced(
+        lambda: slp.solve(A, b, method=method, **options))
+    assert "slt.loop" in {name for _, _, name in spans}
+    assert traced.iterations == plain.iterations
+    assert traced.residual == plain.residual
+    np.testing.assert_array_equal(traced.solution, plain.solution)
