@@ -13,6 +13,12 @@ branch is a layout for its TPU gathers.  A Neumann batch of at most
 ``CHAIN_MAX_RHS`` columns on a chain-ready operator runs as serialized chain
 solves (``solvers/neumann.py::_neumann_run`` per column, the
 ``neumann_step`` kernel), as in the JAX package.
+
+B and X cross between host and device once each and are converted on the
+device: B goes up in the caller's own dtype and strides, and its column
+norms and its copy in the operator's dtype are made there (``_prepare``); X
+comes down widened to float64 (``_download``), into pinned host memory on a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -22,7 +28,6 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..config import to_device, to_host
 from ..errors import DimensionMismatchError
 from ..matrix import Matrix
 from ..solvers import base
@@ -111,6 +116,44 @@ def _chain_columns(op, Bt, thr_cols, options: SolverOptions):
     return torch.stack(xs, dim=1), max(ks), np.asarray(ress)
 
 
+def _prepare(B: np.ndarray, dtype: torch.dtype, dev: torch.device,
+             rows: bool):
+    """B on ``dev`` in ``dtype``, contiguous n-major (n, nrhs), or as
+    (nrhs, n) rows where ``rows``, and B's float64 column 2-norms read back
+    to the host.  B goes up once in its own dtype and strides (an F-ordered
+    view goes up F-ordered; on the CPU the tensor shares B's memory), span
+    ``slt.to_device``, its bytes counted in ``h2d_bytes``; the conversions
+    and the transpose run on the device."""
+    with tracing.span("slt.to_device"):
+        if min(B.strides, default=0) < 0:  # torch takes no negative stride
+            B = np.ascontiguousarray(B)
+        B_dev = torch.from_numpy(B).to(dev)
+        tracing.count("h2d_bytes", B_dev.numel() * B_dev.element_size())
+    norms = _col_norms(B_dev.to(torch.float64))
+    B_op = B_dev.to(dtype)
+    return (B_op.T if rows else B_op).contiguous(), norms
+
+
+def _download(X64: torch.Tensor) -> np.ndarray:
+    """X64 (float64) as a host array.  From a CUDA device it lands in a
+    pinned tensor of torch's caching host allocator, whose ``.numpy()``
+    view this returns: the view holds the tensor, and the allocator reuses
+    the block for a later call only once the view and every array made
+    from it are gone, so each call whose solutions are kept holds a pinned
+    block of its own.  On the CPU it is X64's own memory.  Span
+    ``slt.to_host``; counts one ``host_syncs``, the bytes in ``d2h_bytes``
+    and, pinned, in ``pinned_d2h_bytes``."""
+    with tracing.span("slt.to_host"):
+        nbytes = X64.numel() * X64.element_size()
+        tracing.count_read(nbytes)
+        if X64.is_cuda:
+            host = torch.empty(X64.shape, dtype=X64.dtype, pin_memory=True)
+            host.copy_(X64)
+            tracing.count("pinned_d2h_bytes", nbytes)
+            X64 = host
+        return X64.numpy()
+
+
 @tracing.traced("slt.solve_batch")
 def solve_batch(
     matrix: Matrix,
@@ -127,10 +170,18 @@ def solve_batch(
     DD-convergent batched Neumann series); any other string runs CG, as in
     the JAX package.  Columns that do not converge are reported with
     ``converged=False`` (``raise_on_fail`` is accepted for the JAX
-    signature and, as there, not acted on).  ``mesh`` is not ported yet."""
+    signature and, as there, not acted on).  ``mesh`` is not ported yet.
+
+    Each solution is a column view of one float64 (n, nrhs) host array; on
+    a CUDA device that array is a view of a pinned tensor (``_download``),
+    held by the solutions.  No NumPy pass runs over B or X: a float32 or
+    float64 B is uploaded as given (any other dtype is made float64 first)
+    and converted on the device."""
     options = options or SolverOptions()
     n = matrix.shape[0]
-    B = np.asarray(B, dtype=np.float64)
+    B = np.asarray(B)
+    if B.dtype != np.float32:
+        B = np.asarray(B, dtype=np.float64)
     if B.ndim != 2 or B.shape[0] != n:
         raise DimensionMismatchError(f"batch RHS must be (n, k), got {B.shape}")
     if mesh is not None:
@@ -140,14 +191,6 @@ def solve_batch(
 
     nrhs = B.shape[1]
     op = matrix.op(options.dtype, batch=True)
-    norms = np.linalg.norm(B, axis=0)
-    # Per-column thresholds: eps * ||b_j|| for 'relative', so a column whose
-    # RHS norm is orders of magnitude below its neighbours still meets its
-    # OWN relative tolerance (not eps * max_j ||b_j||).
-    if options.convergence == "relative":
-        thr_cols = float(options.epsilon) * np.maximum(norms, 1e-30)
-    else:
-        thr_cols = np.full(nrhs, float(options.epsilon))
 
     if method == "auto":
         from ..analysis import analyze
@@ -166,17 +209,26 @@ def solve_batch(
 
     # the port's operators pad no domain (n_pad == n), so B goes up as it is
     with base.SolveTimer(matrix.device) as t:
-        if chain_op is not None:
-            Bt = to_device(B.T, chain_op.dtype, matrix.device)
-            X, k, col_res = _chain_columns(chain_op, Bt, thr_cols, options)
+        B_dev, norms = _prepare(B, (chain_op or op).dtype, matrix.device,
+                                rows=chain_op is not None)
+        # Per-column thresholds: eps * ||b_j|| for 'relative', so a column
+        # whose RHS norm is orders of magnitude below its neighbours still
+        # meets its OWN relative tolerance (not eps * max_j ||b_j||).
+        if options.convergence == "relative":
+            thr_cols = float(options.epsilon) * np.maximum(norms, 1e-30)
         else:
-            B_dev = to_device(B, op.dtype, matrix.device)
+            thr_cols = np.full(nrhs, float(options.epsilon))
+        if chain_op is not None:
+            X, k, col_res = _chain_columns(chain_op, B_dev, thr_cols, options)
+        else:
             np_dtype = torch.empty(0, dtype=op.dtype).numpy().dtype
             run = _neumann_batch_run if method == "neumann" else _cg_batch_run
             X, k, col_res = run(op, B_dev, thr_cols.astype(np_dtype),
                                 options.max_iterations)
+        del B_dev  # freed before X is widened: the peak stays the loop's
+        X = X.to(torch.float64)
 
-    X_host = to_host(X, np.float64)
+    X_host = _download(X)
     res = np.asarray(col_res, dtype=np.float64)
     return [
         SolverResult(

@@ -15,10 +15,13 @@ Spans nest on the caller's thread; the enclosing span is the parent.  Span
 names start with ``slt.``.  Counters:
 
   h2d_bytes   bytes of the device tensors made from host arrays
-              (``config.to_device``)
+              (``config.to_device``, ``solve_batch``'s B)
   d2h_bytes   bytes read back from the device (``config.to_host``,
-              ``config.host_float``, the batch loops' column norms and
-              the per-step CG and BiCGSTAB loops' residual and change)
+              ``config.host_float``, ``solve_batch``'s B norms and X, the
+              batch loops' column norms and the per-step CG and BiCGSTAB
+              loops' residual and change)
+  pinned_d2h_bytes  of those, the bytes landed in pinned host memory
+              (``parallel/sharded.py::_download``)
   host_syncs  blocking reads of device data: each of the reads above
   cg_chain_calls  chunks of CG steps run as one ``op.cg_chain`` call
               (``solvers/cg.py::_cg_chain_run``)

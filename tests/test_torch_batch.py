@@ -172,3 +172,64 @@ def test_mesh_is_not_ported():
     _, p = pair("dd2000")
     with pytest.raises(NotImplementedError, match="queue 1, item 11"):
         PS.solve_batch(p, np.ones((2000, 2)), mesh=object())
+
+
+# ---------------------------------------------- B and X prepared on the device
+
+PREP_N = 4096  # the smallest size that the sparse kernels' route takes
+_prep_systems = {}
+
+
+def prep_system(kind):
+    """A port Matrix on the "csr" route: DD for Neumann, SPD for CG."""
+    if kind not in _prep_systems:
+        coo = dd_coo(PREP_N, seed=11) if kind == "dd" else spd_coo(PREP_N,
+                                                                    seed=12)
+        _prep_systems[kind] = slp.Matrix.from_coo(*coo, (PREP_N, PREP_N),
+                                                  prefer="csr")
+    return _prep_systems[kind]
+
+
+def host_prepared_solve(A, B, method, options):
+    """solve_batch as it prepared B and X on the host: the thresholds from
+    ``np.linalg.norm`` of B in float64, B made float32 by NumPy (as
+    (nrhs, n) rows for the chain branch), X widened by NumPy; the same
+    loops.  Returns (X, iterations, column residuals, converged flags)."""
+    B = np.asarray(B, dtype=np.float64)
+    thr = options.epsilon * np.maximum(np.linalg.norm(B, axis=0), 1e-30)
+    if method == "chain":
+        Bt = torch.from_numpy(np.ascontiguousarray(B.T, dtype=np.float32))
+        X, k, res = PS._chain_columns(A.op(), Bt, thr, options)
+    else:
+        B32 = torch.from_numpy(np.ascontiguousarray(B, dtype=np.float32))
+        run = PS._neumann_batch_run if method == "neumann" else PS._cg_batch_run
+        X, k, res = run(A.op(batch=True), B32, thr.astype(np.float32),
+                        options.max_iterations)
+    res = np.asarray(res, dtype=np.float64)
+    return X.numpy().astype(np.float64), k, res, res <= thr * 1.0000001
+
+
+@pytest.mark.parametrize("layout", ["c64", "f64", "c32"])
+@pytest.mark.parametrize("method,cols", [("neumann", 128), ("cg", 128),
+                                         ("chain", 20)])
+def test_device_preparation_equals_host_preparation(layout, method, cols):
+    """B uploaded as given (C-ordered float64, the F-ordered view MCP
+    ``batchSolve`` passes, float32) and converted on the device: the same
+    solutions bit for bit, iterations, residuals and ``converged`` flags as
+    the host preparation, in the 128-column Neumann and CG branches and the
+    <= 32-column chain branch."""
+    A = prep_system("spd" if method == "cg" else "dd")
+    rows = np.random.default_rng(cols).uniform(-1, 1, (cols, PREP_N))
+    rows *= 10.0 ** np.linspace(-3, 3, cols)[:, None]
+    B = {"c64": np.ascontiguousarray(rows.T), "f64": rows.T,
+         "c32": np.ascontiguousarray(rows.T, dtype=np.float32)}[layout]
+    opts = slp.SolverOptions(epsilon=EPS)
+    got = PS.solve_batch(A, B, opts,
+                         method="neumann" if method == "chain" else method)
+    X, k, res, conv = host_prepared_solve(A, B, method, opts)
+    assert got[0].method == ("cg-batch" if method == "cg" else "neumann-batch")
+    assert all(conv)
+    for j, r in enumerate(got):
+        np.testing.assert_array_equal(r.solution, X[:, j])
+        assert r.solution.dtype == np.float64
+        assert (r.iterations, r.residual, r.converged) == (k, res[j], conv[j])

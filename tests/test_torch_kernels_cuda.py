@@ -768,6 +768,28 @@ def test_solve_batch_on_card(card):
         assert r.converged and r.method == "neumann-batch" and rel < 1e-5
 
 
+def test_solve_batch_lands_in_pinned_memory(card):
+    """X comes down widened to float64 into pinned host memory: every
+    solution is a column of one pinned tensor, and every byte of X counted
+    in ``d2h_bytes`` is counted in ``pinned_d2h_bytes`` too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sublinear_tpu_torch import tracing
+
+    a = slp.generate("random-sparse", 20_000, seed=7, density=5e-4)
+    B = np.random.default_rng(1).standard_normal((20_000, 40))
+    solve_batch(a, B, method="neumann")  # packs the operator: its bytes too
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        results = solve_batch(a, B, method="neumann")
+    counts = tracing.counters()
+    assert counts["pinned_d2h_bytes"] == counts["h2d_bytes"] == B.size * 8
+    base = results[0].solution.base.base
+    assert isinstance(base, torch.Tensor) and base.is_pinned()
+    assert base.dtype == torch.float64 and tuple(base.shape) == B.shape
+    assert all(r.solution.base.base is base for r in results)
+
+
 # ------------------------------------------------------------ solver family
 
 def _strong_dd_card(n=2000, seed=6):

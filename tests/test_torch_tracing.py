@@ -118,10 +118,12 @@ def test_solve_batch_spans_and_copies(system):
                                "slt.loop": {"slt.solve_batch"},
                                "slt.to_host": {"slt.solve_batch"}}
     k, cols = results[0].iterations, B.shape[1]
-    # k - 1 loop reads of the column norms, the final ones, and X
-    assert counts["host_syncs"] == k + 1
-    assert counts["h2d_bytes"] == B.size * 4
-    assert counts["d2h_bytes"] == k * cols * 4 + B.size * 4
+    # B's float64 column norms, k - 1 loop reads of the column norms, the
+    # final ones, and X widened to float64 on the device
+    assert counts["host_syncs"] == k + 2
+    assert counts["h2d_bytes"] == B.size * 8  # B as the caller gave it
+    assert counts["d2h_bytes"] == k * cols * 4 + cols * 8 + B.size * 8
+    assert "pinned_d2h_bytes" not in counts  # no pinned copy on the CPU
 
 
 # the spans of P^T's build, which a graph's first PageRank call makes
