@@ -363,7 +363,7 @@ def chain_bounds(op):
     off-diagonal CSR, t_in, inv_d and acc read; t_out and acc written) and
     of one CG step (indptr, the CSR, diag, inv_d, x, r and p read; x, r, p
     written) on ``op``."""
-    n, nnz = op.n_pad, op.indices.numel()
+    n, nnz = op.shape[0], op.indices.numel()
     return {"neumann_step": bound(4 * (n + 1) + 8 * nnz + 20 * n,
                                   2 * nnz + 3 * n),
             "cg_step": bound(4 * (n + 1) + 8 * nnz + 32 * n,
@@ -577,7 +577,7 @@ def spmv_figures(torch, K, A, op, x, label, reps):
     calls), after raising unless the yardstick agrees with the kernel and,
     on rows of at most SPMV_LONG_ROW entries, csr_spmv equals a one-column
     csr_spmm bit for bit.  Returns the ``Figures`` phase 28 prints."""
-    n, nnz = op.n_pad, op.indices.numel()
+    n, nnz = op.shape[0], op.indices.numel()
     S = sparse_csr(torch, A, x.device)
     kern, lib = lambda: K.csr_spmv(op, x, op.diag), lambda: torch.mv(S, x)
     err = rel_err(lib(), kern())

@@ -1,8 +1,16 @@
-"""Device and dtype configuration.
+"""Device and dtype configuration, and the port's host-device boundary.
 
 float32 compute by default, as in the JAX package.  Dense float32 products
 run in full float32 (no TF32), so they match the JAX package's
 ``Precision.HIGHEST`` contractions.
+
+``to_device`` puts a host array on the device, ``to_host`` reads a tensor
+back and ``host_float`` reads one number: the library's crossings go
+through them, so the tracing counters (``h2d_bytes``, ``d2h_bytes``,
+``host_syncs``) see every one.  ``parallel/sharded.py`` counts its own
+batch copies, and ``models/`` and ``interfaces/`` read back on their own.
+The port pads no domain: a vector of an (n, m) operator has n or m
+entries.
 """
 from __future__ import annotations
 

@@ -8,8 +8,7 @@ zero-padded ``x``:
 
 with no gather.  The JAX package writes these in plain ``jnp`` (no Pallas
 kernel); here they are plain PyTorch.  The router in ``matrix.py`` keeps the
-JAX package's predicate order (DIA -> sparse kernel -> dense/ELL).  The
-domain is not padded: ``n_pad == m_pad == n``.
+JAX package's predicate order (DIA -> sparse kernel -> dense/ELL).
 """
 from __future__ import annotations
 
@@ -52,7 +51,6 @@ class DiaOperator:
         self.inv_diag = inv_diag  # (n,), 0 where diag == 0
         self.offsets = offsets    # tuple of python ints, sorted
         self.shape = shape
-        self.n_pad = self.m_pad = shape[0]
         self.nnz = nnz            # the source matrix's, not D * n
 
     @property
@@ -65,18 +63,19 @@ class DiaOperator:
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         lo, hi = self._pad_width()
         xp = F.pad(x, (lo, hi))
-        y = torch.zeros(self.n_pad, dtype=self.dtype, device=x.device)
+        n = self.shape[0]
+        y = torch.zeros(n, dtype=self.dtype, device=x.device)
         for d, off in enumerate(self.offsets):
-            y = y + self.data[d] * xp[lo + off: lo + off + self.n_pad]
+            y = y + self.data[d] * xp[lo + off: lo + off + n]
         return y
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
         lo, hi = self._pad_width()
         Xp = F.pad(X, (0, 0, lo, hi))
-        Y = torch.zeros((self.n_pad, X.shape[1]), dtype=self.dtype,
-                        device=X.device)
+        n = self.shape[0]
+        Y = torch.zeros((n, X.shape[1]), dtype=self.dtype, device=X.device)
         for d, off in enumerate(self.offsets):
-            Y = Y + self.data[d][:, None] * Xp[lo + off: lo + off + self.n_pad]
+            Y = Y + self.data[d][:, None] * Xp[lo + off: lo + off + n]
         return Y
 
     def offdiag_matvec(self, x: torch.Tensor) -> torch.Tensor:

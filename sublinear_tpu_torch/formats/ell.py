@@ -1,11 +1,11 @@
-"""Slot-major ELL + COO-tail and dense device operators, and vector
-helpers, as in ``sublinear_tpu/formats/ell.py``.
+"""Slot-major ELL + COO-tail and dense device operators, as in
+``sublinear_tpu/formats/ell.py``.
 
 ELL is the route for sparse matrices that are neither banded nor taken by
 the sparse kernel (``"csr"``) and too large for the dense route
 (n > ``DENSE_THRESHOLD``); dense is the n <= ``DENSE_THRESHOLD`` route.  The
 JAX package pads every domain to a multiple of 128 lanes for the TPU's
-tiling; the port needs no padding, so ``n_pad == n`` and ``m_pad == m``.
+tiling; the port's operators are (n, m), unpadded.
 """
 from __future__ import annotations
 
@@ -30,7 +30,6 @@ class EllOperator:
         self.diag = diag            # (n,)
         self.inv_diag = inv_diag    # (n,), 0 where diag == 0
         self.shape = shape
-        self.n_pad, self.m_pad = shape
 
     @property
     def dtype(self):
@@ -48,14 +47,14 @@ class EllOperator:
         y = spmv.ell_matvec(self.values, self.cols, x)
         if self.tail_nnz:
             y = y + spmv.coo_matvec(self.tail_vals, self.tail_rows,
-                                    self.tail_cols, x, self.n_pad)
+                                    self.tail_cols, x, self.shape[0])
         return y
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
         Y = spmv.ell_matmat(self.values, self.cols, X)
         if self.tail_nnz:
             Y = Y + spmv.coo_matmat(self.tail_vals, self.tail_rows,
-                                    self.tail_cols, X, self.n_pad)
+                                    self.tail_cols, X, self.shape[0])
         return Y
 
     def offdiag_matvec(self, x: torch.Tensor) -> torch.Tensor:
@@ -65,13 +64,11 @@ class EllOperator:
 class DenseOperator:
     """Dense operator: A held as an (n, m) tensor, products via matmul."""
 
-    def __init__(self, data, diag, inv_diag, *, shape, n_pad, m_pad):
-        self.data = data          # (n_pad, m_pad)
-        self.diag = diag          # (n_pad,)
-        self.inv_diag = inv_diag  # (n_pad,)
+    def __init__(self, data, diag, inv_diag, *, shape):
+        self.data = data          # (n, m)
+        self.diag = diag          # (n,)
+        self.inv_diag = inv_diag  # (n,)
         self.shape = shape
-        self.n_pad = n_pad
-        self.m_pad = m_pad
 
     @property
     def dtype(self):
@@ -87,10 +84,10 @@ class DenseOperator:
         return self.matvec(x) - self.diag * x
 
 
-def _diag_arrays(csr: CSR, n_pad: int, dtype, device):
+def _diag_arrays(csr: CSR, n: int, dtype, device):
     """(diag, inv_diag) as host f64 arithmetic cast to ``dtype``; 0 where
     the diagonal is 0 (same values as the JAX package's helper)."""
-    diag = np.zeros(n_pad, dtype=np.float64)
+    diag = np.zeros(n, dtype=np.float64)
     diag[: min(csr.shape)] = csr.diagonal_vector()
     inv = np.where(diag != 0.0, 1.0 / np.where(diag == 0.0, 1.0, diag), 0.0)
     return to_device(diag, dtype, device), to_device(inv, dtype, device)
@@ -154,12 +151,4 @@ def dense_from_csr(csr: CSR, dtype=None, device=None) -> DenseOperator:
     n, m = csr.shape
     data = to_device(csr.to_dense(), dtype, device)
     diag, inv_diag = _diag_arrays(csr, n, dtype, device)
-    return DenseOperator(data, diag, inv_diag, shape=(n, m), n_pad=n, m_pad=m)
-
-
-def pad_vector(v, n_pad: int, dtype=None, device=None) -> torch.Tensor:
-    dtype = resolve_dtype(dtype)
-    v = np.asarray(v, dtype=np.float64).reshape(-1)
-    out = np.zeros(n_pad, dtype=np.float64)
-    out[: v.size] = v
-    return to_device(out, dtype, device)
+    return DenseOperator(data, diag, inv_diag, shape=(n, m))

@@ -27,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import device as resolve_device, to_device
+from ..config import device as resolve_device, to_device, to_host
 from ..errors import MemoryLimitError
 from .csr import CSR
 
@@ -94,7 +94,6 @@ class StreamingOperator:
 
         self.shape = csr.shape
         n, m = csr.shape
-        self.m_pad = m
         self.dtype = torch.float32  # the panels' values, as in the JAX package
         self.device = resolve_device(device)
         diag = np.zeros(n)
@@ -163,7 +162,7 @@ class StreamingOperator:
         m = self.shape[1]
         x_dev = to_device(np.asarray(x, dtype=np.float64)[:m], torch.float32,
                           self.device)
-        return self.matvec_device(x_dev).cpu().numpy().astype(np.float64)
+        return to_host(self.matvec_device(x_dev), np.float64)
 
     def offdiag_matvec(self, x: np.ndarray) -> np.ndarray:
         return (self.matvec(x)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import host_float, to_host
 from ..matrix import Matrix
 from ..solvers.bmssp import INF, batched_distances_device, in_edge_tables
 from .pagerank import pagerank
@@ -47,12 +48,11 @@ def closeness_centrality(adjacency: Matrix, nodes=None, unit_weights: bool = Tru
         cs = nodes[c0 : c0 + CHUNK]
         dist = batched_distances_device(g, cs, unit_weights=unit_weights)
         reach = (dist < INF * 0.5) & torch.isfinite(dist)
-        reach = reach & (torch.arange(dist.shape[0], device=dist.device)[:, None] < n)
         total = torch.sum(torch.where(reach, dist, 0.0), dim=0)
         reachable = torch.sum(reach, dim=0) - 1
         # the chunk's one read: S farness sums and S reach counts
-        total, reachable = torch.stack(
-            (total.double(), reachable.double())).cpu().numpy()
+        total, reachable = to_host(torch.stack(
+            (total.double(), reachable.double())))
         for j, i in enumerate(cs):
             # Wasserman-Faust normalization for disconnected graphs
             closeness[i] = (
@@ -68,16 +68,16 @@ def closeness_centrality(adjacency: Matrix, nodes=None, unit_weights: bool = Tru
 # ------------------------------------------------------------ device Brandes
 
 def _gather(t: torch.Tensor, idx_flat: torch.Tensor, K: int) -> torch.Tensor:
-    """Rows ``idx`` of the (n_pad, S) tensor ``t`` as (n_pad, K, S)."""
+    """Rows ``idx`` of the (n, S) tensor ``t`` as (n, K, S)."""
     return t.index_select(0, idx_flat).view(-1, K, t.shape[1])
 
 
 def _brandes_chunk(in_srcs, in_mask, out_dsts, out_mask, dist, L: int):
     """sigma forward + dependency backward for one source chunk.
 
-    dist: (n_pad, S) BFS levels (INF where unreachable; the batch axis is
+    dist: (n, S) BFS levels (INF where unreachable; the batch axis is
     minor, so a gather pulls contiguous rows of S numbers), L: the deepest
-    finite level.  Returns the per-node dependency sums (n_pad,).
+    finite level.  Returns the per-node dependency sums (n,).
 
     The predecessor and successor masks and the successors' sigma do not
     change across levels, so they are gathered once (the JAX package
@@ -149,11 +149,12 @@ def _betweenness_device(adjacency: Matrix, sources, scale: float, chunk: int) ->
         # dist stays on the device between the BFS and Brandes phases; the
         # deepest level and the (n,) dependency sum are the chunk's reads
         dist = batched_distances_device(g, cs, unit_weights=True)
-        L = int(torch.max(torch.where(dist < INF * 0.5, dist, -1.0)))
+        deepest = torch.max(torch.where(dist < INF * 0.5, dist, -1.0))
+        L = int(host_float(deepest))
         if L <= 0:
             continue
         delta = _brandes_chunk(t_in.srcs, in_mask, t_out.srcs, out_mask, dist, L)
-        bc += delta.cpu().double().numpy()[:n] * scale
+        bc += to_host(delta, np.float64) * scale
     return bc
 
 

@@ -31,7 +31,6 @@ import torch
 from .. import tracing
 from ..config import resolve_dtype, to_device, to_host
 from ..errors import InvalidParametersError
-from ..formats.ell import pad_vector
 from ..matrix import Matrix
 from ..solvers import base
 
@@ -93,9 +92,8 @@ def _transition_inputs(adjacency: Matrix, dtype):
             if entry is None:
                 out_deg = _out_degrees(adjacency.csr)
                 opT = _transition_matrix(adjacency, out_deg).op(dtype)
-                dangling = np.zeros(opT.n_pad, dtype=bool)
-                dangling[:out_deg.size] = out_deg == 0
-                entry = (opT, to_device(dangling, torch.bool, adjacency.device))
+                entry = (opT, to_device(out_deg == 0, torch.bool,
+                                        adjacency.device))
                 adjacency._pagerank[key] = entry
                 tracing.count("pagerank_transition_builds")
                 return entry
@@ -121,7 +119,7 @@ def pagerank_inputs(adjacency: Matrix, personalized=None, dtype=None):
     else:
         v = np.full(n, 1.0 / n)
 
-    return opT, pad_vector(v, opT.n_pad, opT.dtype, adjacency.device), dangling
+    return opT, to_device(v, opT.dtype, adjacency.device), dangling
 
 
 @tracing.traced("slt.pagerank.run")
@@ -157,12 +155,11 @@ def pagerank(
         raise InvalidParametersError("Adjacency matrix must be square")
     if not (0.0 < damping < 1.0):
         raise InvalidParametersError(f"damping must be in (0,1), got {damping}")
-    n = adjacency.shape[0]
     opT, v, dangling = pagerank_inputs(adjacency, personalized, dtype)
     x, k, res = pagerank_run(opT, v, dangling, damping, float(epsilon),
                              int(max_iterations))
     return PageRankResult(
-        scores=to_host(x, np.float64)[:n],
+        scores=to_host(x, np.float64),
         iterations=int(k),
         residual=res,
         converged=bool(res <= epsilon * 1.0000001),

@@ -19,6 +19,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..config import to_host
 from ..matrix import Matrix
 from ..solvers.dispatch import solve
 from ..types import SolverOptions
@@ -72,7 +73,7 @@ def degroot_consensus(adjacency: Matrix, initial_opinions, steps: int = 100) -> 
     x = W.pad_vector(np.asarray(initial_opinions, dtype=np.float64))
     for _ in range(steps):
         x = op.matvec(x)
-    out = x.cpu().double().numpy()[: adjacency.shape[0]]
+    out = to_host(x, np.float64)
     return {
         "opinions": out.tolist(),
         "consensusValue": float(out.mean()),

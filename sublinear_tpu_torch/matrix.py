@@ -226,15 +226,17 @@ class Matrix:
         return self._transpose_csr
 
     def pad_vector(self, v, dtype=None, transpose: bool = False):
-        """A row-space vector (e.g. the RHS b) as a tensor on the
-        operator's device, padded to its row dimension.  With
-        ``transpose=True``, the transpose operator's row space."""
+        """A row-space vector (e.g. the RHS b) as a tensor of the operator's
+        dtype on the Matrix's device (``config.to_device``).  With
+        ``transpose=True``, the transpose operator's row space.  The JAX
+        package's name: it pads to the TPU's tiles, the port pads
+        nothing."""
         op = self.op(dtype, transpose=transpose)
         n = self.shape[1] if transpose else self.shape[0]
         v = np.asarray(v, dtype=np.float64).reshape(-1)
         if v.size != n:
             raise DimensionMismatchError(f"vector length {v.size} != matrix dim {n}")
-        return _ell.pad_vector(v, op.n_pad, op.dtype, self.device)
+        return config.to_device(v, op.dtype, self.device)
 
     # ------------------------------------------------------------ host ops
     def matvec(self, x) -> np.ndarray:

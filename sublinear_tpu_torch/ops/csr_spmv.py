@@ -7,7 +7,7 @@ with the same outputs) but not its layout: the XBAR route tables, int16
 lanes and 16384-row padding exist because the TPU has no fast arbitrary
 gather.  Here the off-diagonal entries are a plain CSR (int32 ``indptr`` and
 ``indices``, f32 values), the diagonal is split out into f32 ``diag`` and
-``inv_diag`` of length n, and no domain is padded (``n_pad = m_pad = n``).
+``inv_diag`` of length n, and no domain is padded.
 
 Kernels (``csrc/csr_kernels.cu``, built by ``ops/_kernels.py``):
   ``csr_spmv``      y = R x (+ diag * x): replaces ``_fused_call`` and
@@ -68,8 +68,6 @@ class CsrOperator:
         self.diag = diag          # (n,) f32
         self.inv_diag = inv_diag  # (n,) f32, 0 where diag == 0
         self.shape = shape
-        self.n_pad = shape[0]
-        self.m_pad = shape[1]
         self._nnz = nnz
         self.diag_split = diag_split  # diagonal excluded from the CSR
         self._row_ids = None
@@ -98,7 +96,7 @@ class CsrOperator:
         if self._row_ids is None:
             counts = torch.diff(self.indptr.long())
             self._row_ids = torch.repeat_interleave(
-                torch.arange(self.n_pad, device=self.device), counts)
+                torch.arange(self.shape[0], device=self.device), counts)
         return self._row_ids
 
     @property
@@ -243,10 +241,11 @@ def spmv_row_blocks(indptr, tile: int = SPMV_TILE, rows: int = SPMV_ROWS,
 
 def csr_spmv_plain(op: CsrOperator, x: torch.Tensor, diag=None):
     """y = R x (+ diag * x) with index_select / index_add_."""
-    y = torch.zeros(op.n_pad, dtype=x.dtype, device=x.device)
+    n = op.shape[0]
+    y = torch.zeros(n, dtype=x.dtype, device=x.device)
     y.index_add_(0, op.row_ids, op.vals * x.index_select(0, op.indices))
     if diag is not None:
-        y = y + diag * x[: op.n_pad]
+        y = y + diag * x[:n]
     return y
 
 
@@ -273,10 +272,11 @@ def csr_spmm_plain(op: CsrOperator, X: torch.Tensor, diag=None,
     else:
         vh, xh = split_bf16(v)[0].float(), split_bf16(Xg)[0].float()
         P = split_bf16(vh * xh)[0].float()
-    Y = torch.zeros((op.n_pad, X.shape[1]), dtype=X.dtype, device=X.device)
+    n = op.shape[0]
+    Y = torch.zeros((n, X.shape[1]), dtype=X.dtype, device=X.device)
     Y.index_add_(0, op.row_ids, P)
     if diag is not None:
-        Y = Y + diag[:, None] * X[: op.n_pad]
+        Y = Y + diag[:, None] * X[:n]
     return Y
 
 
@@ -342,11 +342,11 @@ def _operator_args(op: CsrOperator) -> tuple:
     nnz = op.indices.numel()
     if nnz >= _INT32_LIMIT:
         raise ValueError("nnz >= 2**31 does not fit the kernels' int32 CSR")
-    if op.n_pad < 1:
+    if op.shape[0] < 1:
         raise ValueError("the kernels need at least one row")
     index = dev.index or 0
     for name, t, dtype, length in (("indptr", op.indptr, torch.int32,
-                                    op.n_pad + 1),
+                                    op.shape[0] + 1),
                                    ("indices", op.indices, torch.int32, nnz),
                                    ("vals", op.vals, torch.float32, nnz)):
         _check_tensor(name, t, (length,), index, dtype)
@@ -389,12 +389,13 @@ def csr_spmv(op: CsrOperator, x: torch.Tensor, diag=None) -> torch.Tensor:
         return csr_spmv_plain(op, x, diag)
 
     device, indptr, indices, vals = _operator_args(op)
-    _check_tensor("x", x, (op.m_pad,), device)
+    n, m = op.shape
+    _check_tensor("x", x, (m,), device)
     if diag is not None:
-        _check_tensor("diag", diag, (op.n_pad,), device)
+        _check_tensor("diag", diag, (n,), device)
     blocks = op.row_blocks
     lib = library("csr_kernels")
-    y = x.new_empty(op.n_pad)
+    y = x.new_empty(n)
     LAUNCHES["csr_spmv"] += 1
     rc = lib.slt_csr_spmv(device, blocks.numel() - 1, blocks.data_ptr(),
                           indptr, indices, vals, x.data_ptr(), ptr(diag),
@@ -405,25 +406,26 @@ def csr_spmv(op: CsrOperator, x: torch.Tensor, diag=None) -> torch.Tensor:
 
 def csr_spmm(op: CsrOperator, X: torch.Tensor, diag=None,
              mode: str = "f32") -> torch.Tensor:
-    """Y (n_pad, B) = R X, plus diag[:, None] * X when ``diag`` is given, for
-    X (m_pad, B) f32.  ``mode``: "f32" (v * x), "split" (onehot_spmm's
+    """Y (n, B) = R X, plus diag[:, None] * X when ``diag`` is given, for
+    X (m, B) f32.  ``mode``: "f32" (v * x), "split" (onehot_spmm's
     precise bf16 hi/lo product) or "bf16" (bf16(bf16(v) * bf16(x)))."""
     _check_mode(mode)
-    if X.dim() != 2 or X.shape[0] != op.m_pad or X.shape[1] < 1:
-        raise ValueError(f"X must be (m={op.m_pad}, B) with B >= 1, got "
+    n, m = op.shape
+    if X.dim() != 2 or X.shape[0] != m or X.shape[1] < 1:
+        raise ValueError(f"X must be (m={m}, B) with B >= 1, got "
                          f"{tuple(X.shape)}")
     if X.is_cpu:
         return csr_spmm_plain(op, X, diag, mode)
 
-    n, B = op.n_pad, X.shape[1]
-    if diag is not None and op.m_pad != n:
+    B = X.shape[1]
+    if diag is not None and m != n:
         raise ValueError(f"diag needs a square operator, got {op.shape}")
     device, indptr, indices, vals = _check_operands(
-        op, X=(X, (op.m_pad, B)), diag=(diag, n))
+        op, X=(X, (m, B)), diag=(diag, n))
     lib = library("spmm_kernels")
     Y = X.new_empty((n, B))
     LAUNCHES["csr_spmm"] += 1
-    rc = lib.slt_csr_spmm(device, SPMM_MODES[mode], n, op.m_pad, B, indptr,
+    rc = lib.slt_csr_spmm(device, SPMM_MODES[mode], n, m, B, indptr,
                           indices, vals, X.data_ptr(), ptr(diag),
                           Y.data_ptr(), stream_of(X))
     raise_on(rc, "csr_spmm", lib)
@@ -444,7 +446,7 @@ def neumann_chain(op: CsrOperator, term0: torch.Tensor, iters: int,
     if term0.is_cpu:
         return neumann_chain_plain(op, term0, iters, with_residual)
 
-    n = op.n_pad
+    n = op.shape[0]
     device, indptr, indices, vals = _check_operands(
         op, term0=(term0, n), inv_diag=(op.inv_diag, n))
     blocks = op.row_blocks
@@ -484,7 +486,7 @@ def cg_chain(op: CsrOperator, x, r, p, rz, iters: int, *, q_out=None):
     if x.is_cpu:
         return cg_chain_plain(op, x, r, p, rz, iters)
 
-    n = op.n_pad
+    n = op.shape[0]
     device, indptr, indices, vals = _check_operands(
         op, x=(x, n), r=(r, n), p=(p, n), diag=(op.diag, n),
         inv_diag=(op.inv_diag, n), q_out=(q_out, n))

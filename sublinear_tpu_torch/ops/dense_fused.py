@@ -53,10 +53,10 @@ def lanes(n: int) -> int:
 
 def fused_supported(op) -> bool:
     """Is the fused path applicable to this operator?  The JAX package's
-    test on its padded sides."""
+    test, on the sides rounded up to 128 (``lanes``)."""
     return (isinstance(op, DenseOperator)
-            and lanes(op.n_pad) <= FUSED_MAX_NPAD
-            and lanes(op.n_pad) == lanes(op.m_pad))
+            and lanes(op.shape[0]) <= FUSED_MAX_NPAD
+            and lanes(op.shape[0]) == lanes(op.shape[1]))
 
 
 def split_bf16(a: torch.Tensor):

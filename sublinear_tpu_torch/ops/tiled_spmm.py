@@ -26,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import to_device
+from ..config import host_float, to_device
 from ..formats.csr import CSR
 from .csr_spmv import CsrOperator, csr_spmm, csr_spmm_plain
 
@@ -63,7 +63,7 @@ class OneHotTiles:
 
     @property
     def fill(self) -> float:
-        return (int(torch.count_nonzero(self.vals))
+        return (int(host_float(torch.count_nonzero(self.vals)))
                 / max(self.vals.numel(), 1))
 
 

@@ -204,10 +204,9 @@ def solve_batch(
     chain_op = None
     if method == "neumann" and nrhs <= CHAIN_MAX_RHS and options.x0 is None:
         op1 = matrix.op(options.dtype)
-        if getattr(op1, "chain_ready", False) and options.check_every > 1:
+        if base.chained(op1, options.check_every):
             chain_op = op1
 
-    # the port's operators pad no domain (n_pad == n), so B goes up as it is
     with base.SolveTimer(matrix.device) as t:
         B_dev, norms = _prepare(B, (chain_op or op).dtype, matrix.device,
                                 rows=chain_op is not None)

@@ -24,6 +24,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..config import to_host
 from ..errors import IndexOutOfBoundsError, InvalidParametersError
 from ..matrix import Matrix
 from ..solvers import push as _push
@@ -108,7 +109,7 @@ def estimate_entry(
         e = np.zeros(n)
         e[row] = 1.0
         y, k, res = _push.adjoint_solve(matrix, e, options)
-        y = y.cpu().double().numpy()[:n]
+        y = to_host(y, np.float64)
         bb = np.asarray(b, dtype=np.float64)
         # residual of the adjoint solve bounds the estimate error by
         # ||r|| * ||b|| / alpha (Varah) when A is strictly DD
@@ -168,7 +169,7 @@ def estimate_functional(
     residual = b_vec - matrix.csr.matvec(x_tilde)
 
     y_dev, k_b, res_b = _push.adjoint_solve(matrix, t_vec, fwd_opts)
-    y_tilde = y_dev.cpu().double().numpy()[:n]
+    y_tilde = to_host(y_dev, np.float64)
 
     estimate = float(t_vec @ x_tilde + y_tilde @ residual)
     # error bound: |s^T A^-1 r| <= ||s|| ||r|| / (min diag gap) — report raw norms

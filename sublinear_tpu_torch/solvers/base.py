@@ -66,6 +66,24 @@ def threshold_for(b: np.ndarray, options: SolverOptions) -> float:
     return float(options.epsilon) * max(nb, 1e-30)
 
 
+def prepare(matrix: Matrix, b, options: SolverOptions):
+    """A solve's prelude: ``(op, b_dev, x0_dev, threshold)``, the matrix's
+    operator in ``options.dtype``, b and ``options.x0`` (zeros where None)
+    on its device in the operator's dtype, and ``threshold_for(b)``."""
+    op = matrix.op(options.dtype)
+    b_dev = matrix.pad_vector(b, options.dtype)
+    x0_dev = (matrix.pad_vector(options.x0, options.dtype)
+              if options.x0 is not None else torch.zeros_like(b_dev))
+    return op, b_dev, x0_dev, threshold_for(b, options)
+
+
+def chained(op, check_every: int) -> bool:
+    """Does a chunk of ``check_every`` steps run as one chain kernel call
+    (``neumann_chain``, ``cg_chain``)?  Where the operator has the chains
+    and the chunk is more than one step."""
+    return getattr(op, "chain_ready", False) and check_every > 1
+
+
 def _as_dtype(value: float, dtype: torch.dtype) -> float:
     """``value`` rounded to ``dtype``: the JAX loop compares its f32
     residual with the threshold in f32, so the host loop does too."""
@@ -204,7 +222,7 @@ class SolveTimer:
 
 def finalize(
     matrix: Matrix,
-    x_pad: torch.Tensor,
+    x_dev: torch.Tensor,
     iterations,
     residual,
     method: str,
@@ -213,8 +231,7 @@ def finalize(
     matvec_count: int = 0,
     error_bounds=None,
 ) -> SolverResult:
-    n = matrix.shape[0]
-    x = to_host(x_pad, np.float64)[:n]
+    x = to_host(x_dev, np.float64)
     res = float(residual)
     result = SolverResult(
         solution=x,
@@ -233,7 +250,7 @@ def finalize(
             matvec_count=matvec_count,
             flops=2 * nnz * matvec_count,
             nnz_per_second=nnz * matvec_count / secs,
-            backend=x_pad.device.type,
+            backend=x_dev.device.type,
             device_count=torch.cuda.device_count(),
         )
     return result

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import resolve_dtype, to_device
+from ..config import host_float, resolve_dtype, to_device, to_host
 from ..matrix import Matrix
 from ..types import SolverOptions, SolverResult
 from ..utils.lru import LRUCache
@@ -36,10 +36,9 @@ SWEEP_BLOCK = 8    # sweeps enqueued per read of the changed flag
 
 
 class InEdgeTables:
-    def __init__(self, srcs, costs, n_pad):
-        self.srcs = srcs    # (n_pad, K) int32: source node of each in-edge
-        self.costs = costs  # (n_pad, K): 1/|a_ij|, INF padding
-        self.n_pad = n_pad
+    def __init__(self, srcs, costs):
+        self.srcs = srcs    # (n, K) int32: source node of each in-edge
+        self.costs = costs  # (n, K): 1/|a_ij|, INF padding
 
 
 _TABLE_CACHE = LRUCache(maxsize=32)
@@ -55,7 +54,6 @@ def in_edge_tables(matrix: Matrix, dtype=None) -> InEdgeTables:
         return hit
     csc = matrix.T_csr()  # rows of A^T = in-edges of A's graph
     n = csc.shape[0]
-    n_pad = matrix.op(dt).n_pad
 
     rows = csc.row_of_entry()  # target node j
     off = csc.indices != rows
@@ -68,14 +66,14 @@ def in_edge_tables(matrix: Matrix, dtype=None) -> InEdgeTables:
     np.cumsum(cnt, out=starts[1:])
     pos = np.arange(t_rows.size) - starts[t_rows]
 
-    srcs = np.zeros((n_pad, K), dtype=np.int32)
-    costs = np.full((n_pad, K), INF)
+    srcs = np.zeros((n, K), dtype=np.int32)
+    costs = np.full((n, K), INF)
     srcs[t_rows, pos] = t_srcs
     with np.errstate(divide="ignore"):
         costs[t_rows, pos] = 1.0 / np.maximum(np.abs(t_vals), 1e-30)
 
     tables = InEdgeTables(to_device(srcs, torch.int32, matrix.device),
-                          to_device(costs, dt, matrix.device), n_pad)
+                          to_device(costs, dt, matrix.device))
     _TABLE_CACHE.put(key, tables)
     return tables
 
@@ -96,9 +94,9 @@ def _sweeps(relax, state, flag):
             sweeps = sweeps + flag
             flag = flag & improved
         done = end
-        if not bool(flag):  # the one device-to-host read per block
+        if not host_float(flag):  # the one device-to-host read per block
             break
-    return state, int(sweeps)
+    return state, int(host_float(sweeps))
 
 
 def _bmssp_run(srcs, costs, dist0, srcval0, bound):
@@ -110,7 +108,7 @@ def _bmssp_run(srcs, costs, dist0, srcval0, bound):
 
     def relax(state):
         dist, srcval = state
-        cand = dist[src_flat].view(-1, K) + costs         # (n_pad, K)
+        cand = dist[src_flat].view(-1, K) + costs         # (n, K)
         best, k_best = torch.min(cand, dim=1)
         improved = (best < dist) & (best <= bound)
         sv_best = srcval[src_flat[row_base + k_best]]
@@ -132,9 +130,9 @@ def shortest_paths(matrix: Matrix, sources, source_values=None,
     1/|a_ij|).  Returns (dist, carried_source_value, sweeps)."""
     tables = in_edge_tables(matrix, dtype)
     dt = resolve_dtype(dtype)
-    n_pad = tables.n_pad
-    dist0 = np.full(n_pad, INF)
-    srcval0 = np.zeros(n_pad)
+    n = tables.srcs.shape[0]
+    dist0 = np.full(n, INF)
+    srcval0 = np.zeros(n)
     sources = np.asarray(sources, dtype=np.int64).reshape(-1)
     vals = (np.asarray(source_values, dtype=np.float64).reshape(-1)
             if source_values is not None else np.ones(sources.size))
@@ -145,21 +143,21 @@ def shortest_paths(matrix: Matrix, sources, source_values=None,
     x, dist, _, sweeps = _bmssp_run(
         tables.srcs, tables.costs, to_device(dist0, dt, dev),
         to_device(srcval0, dt, dev), bound_t)
-    return (dist.cpu().double().numpy(), x.cpu().double().numpy(), sweeps)
+    return to_host(dist, np.float64), to_host(x, np.float64), sweeps
 
 
 # ---------------------------------------------------------------- batched
 
 def _dist_batch_run(srcs, costs, dist0):
-    """Batched multi-source Bellman-Ford: dist0 (n_pad, S) -> relaxed
+    """Batched multi-source Bellman-Ford: dist0 (n, S) -> relaxed
     distances and sweeps.  The batch axis is minor, so each gather pulls a
     contiguous row of S distances."""
     src_flat = srcs.reshape(-1).long()
-    n_pad, K = srcs.shape
+    n, K = srcs.shape
 
     def relax(state):
         (dist,) = state
-        gathered = dist[src_flat].view(n_pad, K, -1)       # (n_pad, K, S)
+        gathered = dist[src_flat].view(n, K, -1)           # (n, K, S)
         cand = torch.amin(gathered + costs[:, :, None], dim=1)
         improved = cand < dist
         return (torch.where(improved, cand, dist),), torch.any(improved)
@@ -178,14 +176,14 @@ def _unit_costs(tables, unit_weights: bool):
 
 def batched_distances_device(matrix: Matrix, sources_chunk,
                              unit_weights: bool = False, dtype=None):
-    """Single-chunk distances kept on the device: (n_pad, S), built from S
+    """Single-chunk distances kept on the device: (n, S), built from S
     uploaded source ints."""
     tables = in_edge_tables(matrix, dtype)
     costs = _unit_costs(tables, unit_weights)
     cs = to_device(np.asarray(sources_chunk, dtype=np.int64), torch.int64,
                    matrix.device)
     S = cs.numel()
-    dist0 = torch.full((tables.n_pad, S), INF, dtype=costs.dtype,
+    dist0 = torch.full((costs.shape[0], S), INF, dtype=costs.dtype,
                        device=costs.device)
     dist0[cs, torch.arange(S, device=costs.device)] = 0.0
     dist, _ = _dist_batch_run(tables.srcs, costs, dist0)
@@ -203,7 +201,7 @@ def batched_distances(matrix: Matrix, sources, unit_weights: bool = False,
     for c0 in range(0, sources.size, chunk):
         cs = sources[c0: c0 + chunk]
         dist = batched_distances_device(matrix, cs, unit_weights, dtype)
-        out[c0: c0 + len(cs)] = dist[:n].cpu().double().numpy().T
+        out[c0: c0 + len(cs)] = to_host(dist, np.float64).T
     return out
 
 
@@ -229,14 +227,13 @@ def solve_bmssp(matrix: Matrix, b, options: SolverOptions,
     with base.SolveTimer(matrix.device) as t:
         dist, x, sweeps = shortest_paths(matrix, sources, b[sources],
                                          dtype=options.dtype)
-    visited = int(np.sum(dist[:n] < INF * 0.5))
+    visited = int(np.sum(dist < INF * 0.5))
     if visited > n // 2 and sources.size > n // 100:
         # dense reach: the graph heuristic explores everything; CG is better
         r = _cg.solve_bicgstab(matrix, b, options, raise_on_fail=raise_on_fail)
         r.method = "bmssp(cg-fallback)"
         return r
 
-    x = x[:n]
     res = float(np.linalg.norm(matrix.csr.matvec(x) - b))
     return SolverResult(
         solution=x,

@@ -131,31 +131,23 @@ def _bicgstab_run(op, b, x0, threshold, max_iters, mode="residual",
     return x, k, res, change
 
 
-def _prepare(matrix: Matrix, b, options: SolverOptions):
-    op = matrix.op(options.dtype)
-    b_pad = matrix.pad_vector(b, options.dtype)
-    x0 = (matrix.pad_vector(options.x0, options.dtype)
-          if options.x0 is not None else torch.zeros_like(b_pad))
-    return op, b_pad, x0, base.threshold_for(b, options)
-
-
 def solve_cg(matrix: Matrix, b, options: SolverOptions,
              raise_on_fail: bool = True,
              precondition: bool = True) -> SolverResult:
-    op, b_pad, x0, threshold = _prepare(matrix, b, options)
+    op, b_dev, x0, threshold = base.prepare(matrix, b, options)
     mode = base.driver_mode_of(options)
     # chain path: chunks of CG steps as cg_chain calls (the JAX package's
     # conditions, cg.py:167-169)
-    use_chain = (getattr(op, "chain_ready", False) and precondition
-                 and mode == "residual" and options.check_every > 1)
+    use_chain = (base.chained(op, options.check_every) and precondition
+                 and mode == "residual")
     with base.SolveTimer(matrix.device) as t:
         if use_chain:
-            x, k, res = _cg_chain_run(op, b_pad, x0, threshold,
+            x, k, res = _cg_chain_run(op, b_dev, x0, threshold,
                                       options.max_iterations,
                                       options.check_every)
             change = math.inf
         else:
-            x, k, res, change = _cg_run(op, b_pad, x0, threshold,
+            x, k, res, change = _cg_run(op, b_dev, x0, threshold,
                                         options.max_iterations, precondition,
                                         mode, options.epsilon)
     result = base.finalize(matrix, x, k, res, "conjugate-gradient", options,
@@ -166,10 +158,10 @@ def solve_cg(matrix: Matrix, b, options: SolverOptions,
 
 def solve_bicgstab(matrix: Matrix, b, options: SolverOptions,
                    raise_on_fail: bool = True) -> SolverResult:
-    op, b_pad, x0, threshold = _prepare(matrix, b, options)
+    op, b_dev, x0, threshold = base.prepare(matrix, b, options)
     with base.SolveTimer(matrix.device) as t:
         x, k, res, change = _bicgstab_run(
-            op, b_pad, x0, threshold, options.max_iterations,
+            op, b_dev, x0, threshold, options.max_iterations,
             base.driver_mode_of(options), options.epsilon)
     result = base.finalize(matrix, x, k, res, "bicgstab", options, t.ms,
                            matvec_count=2 * k + 1)

@@ -63,14 +63,10 @@ def solve_chebyshev(matrix: Matrix, b, options: SolverOptions,
                     raise_on_fail: bool = True) -> SolverResult:
     a = analyze(matrix, estimate_condition=False)
     rho = min(max(float(a.spectral_radius_estimate or 0.9), 1e-3), 0.999)
-    op = matrix.op(options.dtype)
-    b_pad = matrix.pad_vector(b, options.dtype)
-    x0 = (matrix.pad_vector(options.x0, options.dtype)
-          if options.x0 is not None else torch.zeros_like(b_pad))
-    threshold = base.threshold_for(b, options)
+    op, b_dev, x0, threshold = base.prepare(matrix, b, options)
     with base.SolveTimer(matrix.device) as t:
         x, k, res, change = _chebyshev_run(
-            op, b_pad, x0, rho, threshold, options.max_iterations,
+            op, b_dev, x0, rho, threshold, options.max_iterations,
             options.check_every, base.norm_mode_of(options),
             base.driver_mode_of(options), options.epsilon,
         )

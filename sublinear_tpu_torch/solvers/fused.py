@@ -22,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from ..config import host_float
 from ..matrix import Matrix
 from ..ops import dense_fused as df
 from ..ops import spmv
@@ -30,7 +31,7 @@ from . import base
 
 
 def _variant(op) -> str:
-    return ("highest" if df.lanes(op.n_pad) <= df.FUSED_HIGHEST_MAX_NPAD
+    return ("highest" if df.lanes(op.shape[0]) <= df.FUSED_HIGHEST_MAX_NPAD
             else "bf16x3")
 
 
@@ -41,7 +42,7 @@ def _square(op, *vectors):
     non-square one (say 100 x 120) gets zero rows or columns, and vectors
     zero entries, which leaves the iteration on the first entries as the
     JAX package computes it."""
-    n, m = op.n_pad, op.m_pad
+    n, m = op.shape
     if n == m:
         return (op.data, op.diag, op.inv_diag, *vectors)
     s = max(n, m)
@@ -77,14 +78,11 @@ def solve_neumann_fused(matrix: Matrix, b, options: SolverOptions,
 
             return solve_neumann(matrix, b, options, raise_on_fail)
 
-    b_pad = matrix.pad_vector(b, options.dtype)
-    x0 = (matrix.pad_vector(options.x0, options.dtype)
-          if options.x0 is not None else torch.zeros_like(b_pad))
-    a, diag, dinv, b_col, x = _square(op, b_pad[:, None], x0[:, None])
+    _, b_dev, x0, threshold = base.prepare(matrix, b, options)
+    a, diag, dinv, b_col, x = _square(op, b_dev[:, None], x0[:, None])
     diag, dinv = diag[:, None], dinv[:, None]
     if variant == "bf16x3":
         ah, al = df.split_bf16(a)
-    threshold = base.threshold_for(b, options)
 
     def kernel_block(x):
         if variant == "bf16x3":
@@ -101,12 +99,13 @@ def solve_neumann_fused(matrix: Matrix, b, options: SolverOptions,
         k = block
         res_t = residual_of(x)
         lims = base.limits(res_t.dtype, threshold)
-        res = float(res_t)  # the loop's one device-to-host sync per block
+        res = host_float(res_t)  # the loop's one read per block
         while base.running(res, math.inf, k, options.max_iterations, lims):
             x = kernel_block(x)
             k += block
-            res = float(residual_of(x))
-    result = base.finalize(matrix, x[:, 0], k, res,
+            res = host_float(residual_of(x))
+    # the rows of b: _square may have added zero rows below them
+    result = base.finalize(matrix, x[: matrix.shape[0], 0], k, res,
                            f"neumann-fused-{variant}", options, t.ms,
                            matvec_count=k)
     return base.check_outcome(result, threshold, options, raise_on_fail)

@@ -10,7 +10,7 @@ sparsity pattern is computed on the host once, and a sweep updates each
 color class at once.  Rows of one color do not couple, so each class update
 is an exact Gauss-Seidel update.  Each color costs one full
 ``offdiag_matvec`` and a ``torch.where`` over a static bool mask
-``(num_colors, n_pad)`` on the device: the JAX package's fixed point and
+``(num_colors, n)`` on the device: the JAX package's fixed point and
 schedule, with ``matvec_count = k * num_colors``.
 """
 from __future__ import annotations
@@ -73,13 +73,13 @@ def greedy_coloring(matrix: Matrix) -> np.ndarray:
     return colors
 
 
-def color_masks(colors: np.ndarray, n_pad: int, device) -> torch.Tensor:
-    """(num_colors, n_pad) bool masks of the color classes, on ``device``;
-    padding rows belong to no class."""
+def color_masks(colors: np.ndarray, n: int, device) -> torch.Tensor:
+    """(num_colors, n) bool masks of the color classes of the n rows, on
+    ``device``."""
     num_colors = int(colors.max()) + 1 if colors.size else 1
-    masks = np.zeros((num_colors, n_pad), dtype=bool)
+    masks = np.zeros((num_colors, n), dtype=bool)
     for c in range(num_colors):
-        masks[c, : colors.size] = colors == c
+        masks[c] = colors == c
     return to_device(masks, torch.bool, device)
 
 
@@ -102,20 +102,12 @@ def _sor_run(op, b, x0, masks, omega, threshold, max_iters, check_every,
         change_tol=change_tol)
 
 
-def _prepare(matrix: Matrix, b, options: SolverOptions):
-    op = matrix.op(options.dtype)
-    b_pad = matrix.pad_vector(b, options.dtype)
-    x0 = (matrix.pad_vector(options.x0, options.dtype)
-          if options.x0 is not None else torch.zeros_like(b_pad))
-    return op, b_pad, x0, base.threshold_for(b, options)
-
-
 def solve_jacobi(matrix: Matrix, b, options: SolverOptions,
                  raise_on_fail: bool = True) -> SolverResult:
-    op, b_pad, x0, threshold = _prepare(matrix, b, options)
+    op, b_dev, x0, threshold = base.prepare(matrix, b, options)
     with base.SolveTimer(matrix.device) as t:
         x, k, res, change = _jacobi_run(
-            op, b_pad, x0, threshold, options.max_iterations,
+            op, b_dev, x0, threshold, options.max_iterations,
             options.check_every, base.norm_mode_of(options),
             base.driver_mode_of(options), options.epsilon)
     result = base.finalize(matrix, x, k, res, "jacobi", options, t.ms,
@@ -127,14 +119,14 @@ def solve_jacobi(matrix: Matrix, b, options: SolverOptions,
 def solve_sor(matrix: Matrix, b, options: SolverOptions, omega: float = 1.0,
               raise_on_fail: bool = True,
               method_name: str = "sor") -> SolverResult:
-    op, b_pad, x0, threshold = _prepare(matrix, b, options)
+    op, b_dev, x0, threshold = base.prepare(matrix, b, options)
     colors = greedy_coloring(matrix)
-    masks = color_masks(colors, op.n_pad, b_pad.device)
+    masks = color_masks(colors, op.shape[0], b_dev.device)
     # omega in the operator's dtype, as the JAX package passes it
     omega = float(torch.tensor(omega, dtype=op.dtype))
     with base.SolveTimer(matrix.device) as t:
         x, k, res, change = _sor_run(
-            op, b_pad, x0, masks, omega, threshold, options.max_iterations,
+            op, b_dev, x0, masks, omega, threshold, options.max_iterations,
             options.check_every, base.driver_mode_of(options),
             options.epsilon)
     result = base.finalize(matrix, x, k, res, method_name, options, t.ms,

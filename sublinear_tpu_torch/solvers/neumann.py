@@ -29,7 +29,7 @@ def _neumann_run(op, b, x0, threshold, max_iters, check_every, norm_mode="l2", m
         x, _ = state
         return base.device_norm(op.matvec(x) - b, norm_mode)
 
-    if getattr(op, "chain_ready", False) and check_every > 1:
+    if base.chained(op, check_every):
         # one chunk = check_every Neumann iterations as one chain of
         # neumann_step kernels (ops/csr_spmv.py)
         def step_block(state):
@@ -58,17 +58,10 @@ def _neumann_run(op, b, x0, threshold, max_iters, check_every, norm_mode="l2", m
 
 
 def solve_neumann(matrix: Matrix, b, options: SolverOptions, raise_on_fail: bool = True) -> SolverResult:
-    op = matrix.op(options.dtype)
-    b_pad = matrix.pad_vector(b, options.dtype)
-    if options.x0 is not None:
-        x0 = matrix.pad_vector(options.x0, options.dtype)
-    else:
-        x0 = torch.zeros_like(b_pad)
-    threshold = base.threshold_for(b, options)
-
+    op, b_dev, x0, threshold = base.prepare(matrix, b, options)
     with base.SolveTimer(matrix.device) as t:
         x, k, res, change, term_n, rhs_n = _neumann_run(
-            op, b_pad, x0, threshold, options.max_iterations, options.check_every,
+            op, b_dev, x0, threshold, options.max_iterations, options.check_every,
             base.norm_mode_of(options), base.driver_mode_of(options), options.epsilon,
         )
     eb = base.neumann_truncation_bounds(matrix, k, term_n, rhs_n, res)

@@ -11,11 +11,11 @@ solve and a plain ``solve()`` of one b take the same iterations.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
 import numpy as np
-import torch
 
 from ..analysis import analyze
 from ..errors import InvalidParametersError
@@ -63,7 +63,7 @@ class PreparedSolver:
             return lambda op, b, x0, thr: _jacobi._jacobi_run(
                 op, b, x0, thr, its, every, norm_mode)
         if m == Method.CG:
-            if getattr(self.op, "chain_ready", False) and every > 1:
+            if base.chained(self.op, every):
                 def chained(op, b, x0, thr):
                     x, k, res = _cg._cg_chain_run(op, b, x0, thr, its, every)
                     return x, k, res, math.inf
@@ -87,12 +87,10 @@ class PreparedSolver:
 
     def solve(self, b, x0: Optional[np.ndarray] = None) -> SolverResult:
         opts = self.options
-        b_pad = self.matrix.pad_vector(b, opts.dtype)
-        x0_pad = (self.matrix.pad_vector(x0, opts.dtype) if x0 is not None
-                  else torch.zeros_like(b_pad))
-        threshold = base.threshold_for(b, opts)
+        _, b_dev, x0_dev, threshold = base.prepare(
+            self.matrix, b, dataclasses.replace(opts, x0=x0))
         with base.SolveTimer(self.matrix.device) as t:
-            out = self._runner(self.op, b_pad, x0_pad, threshold)
+            out = self._runner(self.op, b_dev, x0_dev, threshold)
             x, k, res = out[0], out[1], out[2]  # runners return (..., change)
         result = base.finalize(self.matrix, x, k, res, self.method.value,
                                opts, t.ms, matvec_count=int(k))

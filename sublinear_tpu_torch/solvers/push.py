@@ -20,8 +20,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from ..config import to_host
 from ..matrix import Matrix
 from ..types import SolverOptions, SolverResult
 from . import base
@@ -57,23 +59,19 @@ def _push_run(op, b, x0, threshold, max_iters, check_every, norm_mode="l2",
 def solve_push(matrix: Matrix, b, options: SolverOptions,
                direction: str = "forward-push",
                raise_on_fail: bool = True) -> SolverResult:
-    op = matrix.op(options.dtype)
-    b_pad = matrix.pad_vector(b, options.dtype)
-    x0 = (matrix.pad_vector(options.x0, options.dtype)
-          if options.x0 is not None else torch.zeros_like(b_pad))
-    threshold = base.threshold_for(b, options)
+    op, b_dev, x0, threshold = base.prepare(matrix, b, options)
 
     if direction == "bidirectional":
         # push phase with a loose budget, then BiCGSTAB from its iterate
         with base.SolveTimer(matrix.device) as t:
             x, k, _, _ = _push_run(
-                op, b_pad, x0, threshold,
+                op, b_dev, x0, threshold,
                 max(options.max_iterations // 4, 8), options.check_every,
                 base.norm_mode_of(options))
         from . import cg as _cg
 
-        polish_opts = dataclasses.replace(
-            options, x0=x[: matrix.shape[0]].cpu().double().numpy())
+        polish_opts = dataclasses.replace(options,
+                                          x0=to_host(x, np.float64))
         polish = _cg.solve_bicgstab(matrix, b, polish_opts,
                                     raise_on_fail=raise_on_fail)
         polish.method = "bidirectional"
@@ -83,7 +81,7 @@ def solve_push(matrix: Matrix, b, options: SolverOptions,
 
     with base.SolveTimer(matrix.device) as t:
         x, k, res, change = _push_run(
-            op, b_pad, x0, threshold, options.max_iterations,
+            op, b_dev, x0, threshold, options.max_iterations,
             options.check_every, base.norm_mode_of(options),
             base.driver_mode_of(options), options.epsilon)
     result = base.finalize(matrix, x, k, res, direction, options, t.ms,
@@ -98,8 +96,8 @@ def adjoint_solve(matrix: Matrix, e, options: SolverOptions):
     residual)`` with y a tensor on the matrix's device, of the transpose
     operator's length."""
     opT = matrix.op(options.dtype, transpose=True)
-    e_pad = matrix.pad_vector(e, options.dtype, transpose=True)
+    e_dev = matrix.pad_vector(e, options.dtype, transpose=True)
     threshold = base.threshold_for(e, options)
-    y, k, res, _ = _push_run(opT, e_pad, torch.zeros_like(e_pad), threshold,
+    y, k, res, _ = _push_run(opT, e_dev, torch.zeros_like(e_dev), threshold,
                              options.max_iterations, options.check_every)
     return y, k, res

@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import resolve_dtype, to_device
+from ..config import host_float, resolve_dtype, to_device, to_host
 from ..errors import MemoryLimitError
 from ..formats.streaming import memory_budget_bytes
 from ..matrix import Matrix
@@ -50,14 +50,13 @@ class SamplingTables:
     """Row-major CDF sampling tables for the iteration matrix M = -D^-1 R,
     on the matrix's device."""
 
-    def __init__(self, cols, cdf, sign, S, n_pad, mval, k_row):
-        self.cols = cols    # (n_pad, K) int32
-        self.cdf = cdf      # (n_pad, K) cumulative probabilities in [0, 1]
-        self.sign = sign    # (n_pad, K) +-1
-        self.S = S          # (n_pad,) row l1 mass of M
-        self.n_pad = n_pad
-        self.mval = mval    # (n_pad, K) signed entries of M (uniform IS weights)
-        self.k_row = k_row  # (n_pad,) nonzero slot count per row
+    def __init__(self, cols, cdf, sign, S, mval, k_row):
+        self.cols = cols    # (n, K) int32
+        self.cdf = cdf      # (n, K) cumulative probabilities in [0, 1]
+        self.sign = sign    # (n, K) +-1
+        self.S = S          # (n,) row l1 mass of M
+        self.mval = mval    # (n, K) signed entries of M (uniform IS weights)
+        self.k_row = k_row  # (n,) nonzero slot count per row
 
 
 # bounded: serving processes touch many distinct matrices
@@ -66,7 +65,7 @@ _TABLE_CACHE = LRUCache(maxsize=32)
 
 def estimate_table_bytes(matrix: Matrix) -> int:
     """Device bytes of the sampling tables: 4 (n, K) planes + 2 (n,)
-    vectors of 4-byte entries (the port does not pad n)."""
+    vectors of 4-byte entries."""
     row_nnz = matrix.csr.row_nnz()
     K = max(int(row_nnz.max()) if row_nnz.size else 1, 1)
     n = max(matrix.shape[0], 1)
@@ -93,7 +92,6 @@ def sampling_tables(matrix: Matrix, dtype=None) -> SamplingTables:
         )
     csr = matrix.csr
     n = csr.shape[0]
-    n_pad = matrix.op(dt).n_pad
 
     rows = csr.row_of_entry()
     diag = csr.diagonal_vector()
@@ -109,10 +107,10 @@ def sampling_tables(matrix: Matrix, dtype=None) -> SamplingTables:
     np.cumsum(row_cnt, out=starts[1:])
     pos = np.arange(o_rows.size) - starts[o_rows]
 
-    absm = np.zeros((n_pad, K))
-    sign = np.ones((n_pad, K))
-    mval = np.zeros((n_pad, K))
-    cols = np.zeros((n_pad, K), dtype=np.int32)
+    absm = np.zeros((n, K))
+    sign = np.ones((n, K))
+    mval = np.zeros((n, K))
+    cols = np.zeros((n, K), dtype=np.int32)
     absm[o_rows, pos] = np.abs(m_vals)
     sign[o_rows, pos] = np.where(m_vals >= 0, 1.0, -1.0)
     mval[o_rows, pos] = m_vals
@@ -122,14 +120,12 @@ def sampling_tables(matrix: Matrix, dtype=None) -> SamplingTables:
     safe = np.where(S > 0, S, 1.0)
     cdf = np.cumsum(absm / safe[:, None], axis=1)
     cdf[:, -1] = 1.0 + 1e-6  # guard: u==1 still lands in the last slot
-    k_row = np.zeros(n_pad)
-    k_row[:n] = row_cnt
 
     dev = matrix.device
     tables = SamplingTables(
         to_device(cols, torch.int32, dev), to_device(cdf, dt, dev),
-        to_device(sign, dt, dev), to_device(S, dt, dev), n_pad,
-        to_device(mval, dt, dev), to_device(k_row, dt, dev))
+        to_device(sign, dt, dev), to_device(S, dt, dev),
+        to_device(mval, dt, dev), to_device(row_cnt, dt, dev))
     _TABLE_CACHE.put(key, tables)
     return tables
 
@@ -206,9 +202,10 @@ def _walk_batch(tables_tuple, c, starts, seed, max_len, antithetic,
             t = t + alive
         step = end
         # the one device-to-host read per block: the next step's condition
-        if step < max_len and not bool(alive & torch.any(w.abs() > W_MIN)):
+        if step < max_len and not host_float(
+                alive & torch.any(w.abs() > W_MIN)):
             break
-    return acc, int(t)
+    return acc, int(host_float(t))
 
 
 def _walk_inputs(matrix: Matrix, b, options: SolverOptions):
@@ -258,7 +255,7 @@ def run_walks(matrix: Matrix, b, starts_np, options: SolverOptions, *,
         acc, t = _walk_batch(tup, c, chunk, seed + 0xC41 * ci,
                              max_len, anti, strategy=strategy,
                              t_start=int(t_start), group=int(group))
-        accs.append(acc.cpu().double().numpy())
+        accs.append(to_host(acc, np.float64))
         t_max = max(t_max, t)
     return np.concatenate(accs), t_max
 
@@ -281,7 +278,7 @@ def cv_walk_estimate(matrix: Matrix, b, start_nodes, options: SolverOptions):
     T0 = int(min(CV_HEAD_STEPS, max(options.max_walk_length // 4, 1)))
     op = matrix.op(options.dtype)
     c = op.inv_diag * matrix.pad_vector(b, options.dtype)
-    head = _head_partial_sum(op, c, T0).cpu().double().numpy()
+    head = to_host(_head_partial_sum(op, c, T0), np.float64)
     starts = np.repeat(start_nodes, W)
     tail, t = run_walks(matrix, b, starts, options, t_start=T0, group=W)
     tail = tail.reshape(start_nodes.size, W)

@@ -24,7 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import to_device
+from ..config import host_float, to_device, to_host
 from ..errors import ConvergenceError
 from ..matrix import Matrix
 from ..types import SolverOptions, SolverResult
@@ -84,17 +84,17 @@ def solve_refined(
                             device=matrix.device)
         for _ in range(max_refinements + 1):
             r_dev = resid(x_dev)
-            residual_val = float(torch.linalg.vector_norm(r_dev))
+            residual_val = host_float(torch.linalg.vector_norm(r_dev))
             if residual_val <= target_abs:
                 break
-            result = solve(matrix, r_dev.cpu().numpy(), inner,
+            result = solve(matrix, to_host(r_dev), inner,
                            method=inner_method, raise_on_fail=False)
             inner_method = result.method if inner_method is None else inner_method
             total_iters += result.iterations
             if not np.all(np.isfinite(result.solution)):
                 break
             x_dev += to_device(result.solution, torch.float64, matrix.device)
-        x = x_dev.cpu().numpy()
+        x = to_host(x_dev)
     else:
         x = np.zeros_like(b64)
         for _ in range(max_refinements + 1):

@@ -111,7 +111,7 @@ def test_dense_neumann_at_path_width(kernel, n):
     (solve_neumann_fused: n=768 takes the f32 kernel, n=1536 the bf16x3
     one), B=1, T=8; no padding in either package at these n."""
     jop, pop, (b, x0), (jb, jx0) = _inputs(n, 1, seed=4)
-    assert jop.n_pad == pop.n_pad == n
+    assert jop.n_pad == n and pop.shape == (n, n)
     (d, dinv), (jd, jdinv) = _diag_cols(jop, pop)
     if kernel == "dense_neumann_fused":
         got = df.dense_neumann_fused(pop.data, d, dinv, b, x0, iters=BLOCK)
@@ -154,12 +154,12 @@ def test_dense_jacobi_power_at_path_width(kernel):
     if kernel == "dense_power_fused":
         jop, pop, (pv, pd), (jv, jd) = _power_inputs(n, 1, seed=4,
                                                      p=15.0 / n)
-        assert jop.n_pad == pop.n_pad == n
+        assert jop.n_pad == n and pop.shape == (n, n)
         got = df.dense_power_fused(pop.data, pv, pd, 0.85, iters=BLOCK)
         want = pk.dense_power_fused(jop.data, jv, jd, 0.85, iters=BLOCK)
     else:
         jop, pop, (b, x0), (jb, jx0) = _inputs(n, 1, seed=4)
-        assert jop.n_pad == pop.n_pad == n
+        assert jop.n_pad == n and pop.shape == (n, n)
         (d, dinv), (jd, jdinv) = _diag_cols(jop, pop)
         got = df.dense_jacobi_fused(pop.data, d, dinv, b, x0, iters=BLOCK)
         want = pk.dense_jacobi_fused(jop.data, jd, jdinv, jb, jx0,

@@ -95,7 +95,7 @@ def test_pagerank_matches(graph):
 def test_pagerank_routes_and_ring():
     _, p = sparse_digraph()
     opT, v, dangling = pagerank_inputs(p)
-    assert type(opT).__name__ == "CsrOperator" and opT.n_pad == 5000
+    assert type(opT).__name__ == "CsrOperator" and opT.shape == (5000, 5000)
     assert v.shape == dangling.shape == (5000,) and dangling.dtype == torch.bool
     _, ring = ring_graph(32)
     np.testing.assert_allclose(G.pagerank(ring).scores, np.full(32, 1 / 32),

@@ -196,6 +196,33 @@ def test_port_imports_no_jax():
         assert not bad, f"{path.name} imports {bad}"
 
 
+# the modules that read the device back on their own: the boundary itself,
+# the batch path's counted copies, the models and the entry points
+OWN_READS = ("config.py", "parallel/sharded.py", "interop.py", "models/",
+             "interfaces/")
+
+
+def test_reads_go_through_config():
+    """Outside ``OWN_READS`` the package makes no ``.cpu()`` or ``.item()``
+    call: every read of the device goes through ``config.to_host`` or
+    ``config.host_float``, which the tracing counters see."""
+    root = Path(slp.__file__).resolve().parent
+    checked, bad = 0, []
+    for path in sorted(root.rglob("*.py")):
+        rel = path.relative_to(root).as_posix()
+        if rel.startswith(OWN_READS):
+            continue
+        checked += 1
+        tree = ast.parse(path.read_text(), filename=str(path))
+        bad += [f"{rel}:{node.lineno} .{node.func.attr}()"
+                for node in ast.walk(tree)
+                if isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr in ("cpu", "item")]
+    assert checked > 40
+    assert not bad, bad
+
+
 LAYER_MODULES = [f"queries/{m}.py" for m in ("__init__", "estimate", "temporal")]
 LAYER_MODULES += [f"graph/{m}.py" for m in (
     "__init__", "pagerank", "resistance", "social", "flow", "community",

@@ -47,8 +47,8 @@ def op():
 @pytest.fixture(scope="module")
 def x(op):
     rng = np.random.default_rng(1)
-    return torch.as_tensor(rng.uniform(-1, 1, op.n_pad), dtype=torch.float32,
-                           device=op.device)
+    return torch.as_tensor(rng.uniform(-1, 1, op.shape[0]),
+                           dtype=torch.float32, device=op.device)
 
 
 def _close(got, want):
@@ -580,7 +580,7 @@ def test_csr_spmm(spmm_op, mode, B):
     the f32 mode with the split diagonal, as CsrOperator.matmat runs it."""
     op = spmm_op
     rng = np.random.default_rng(B)
-    X = torch.as_tensor(rng.standard_normal((op.m_pad, B)),
+    X = torch.as_tensor(rng.standard_normal((op.shape[1], B)),
                         dtype=torch.float32, device=op.device)
     diag = op.diag if mode == "f32" else None
     before = K.LAUNCHES["csr_spmm"]
@@ -588,7 +588,7 @@ def test_csr_spmm(spmm_op, mode, B):
     assert K.LAUNCHES["csr_spmm"] == before + 1
     want = K.csr_spmm_plain(op, X, diag, mode)
     torch.cuda.synchronize()
-    assert got.shape == want.shape == (op.n_pad, B)
+    assert got.shape == want.shape == (op.shape[0], B)
     _close(got, want)
     if diag is None:
         assert not got[EMPTY_ROW].any()
@@ -600,8 +600,8 @@ def test_csr_spmm_unaligned_block(spmm_op, mode, B):
     """A contiguous X whose start is 4 bytes off a 16-byte boundary takes
     the scalar path even though B % 4 == 0, in every product mode."""
     op = spmm_op
-    flat = torch.randn(op.m_pad * B + 1, device=op.device)
-    X = flat[1:].view(op.m_pad, B)
+    flat = torch.randn(op.shape[1] * B + 1, device=op.device)
+    X = flat[1:].view(op.shape[1], B)
     diag = op.diag if mode == "f32" else None
     _close(K.csr_spmm(op, X, diag, mode),
            K.csr_spmm_plain(op, X, diag, mode))
@@ -616,7 +616,7 @@ def test_csr_spmm_columns_bit_identical(spmm_op, mode):
     product of that column alone (the scalar path), a block of columns the
     product of that block, and two runs are equal."""
     op = spmm_op
-    X = torch.randn(op.m_pad, 200, device=op.device)
+    X = torch.randn(op.shape[1], 200, device=op.device)
     diag = op.diag if mode == "f32" else None
     Y = K.csr_spmm(op, X, diag, mode)
     assert torch.equal(Y, K.csr_spmm(op, X, diag, mode))
@@ -632,9 +632,9 @@ def test_csr_spmv_is_one_column_spmm(spmm_op):
     order, so the two agree bit for bit there (the hub row, summed by a
     whole block, only within the tolerance)."""
     op = spmm_op
-    x = torch.randn(op.m_pad, device=op.device)
+    x = torch.randn(op.shape[1], device=op.device)
     short = torch.diff(op.indptr) <= K.SPMV_LONG_ROW
-    assert not short[HUB_ROW] and int(short.sum()) == op.n_pad - 1
+    assert not short[HUB_ROW] and int(short.sum()) == op.shape[0] - 1
     for diag in (op.diag, None):
         y = K.csr_spmv(op, x, diag)
         Y = K.csr_spmm(op, x[:, None].contiguous(), diag)
@@ -679,7 +679,7 @@ def test_csr_spmv_shapes(card, case):
     csr = (_csr_from_lengths(np.random.default_rng(2).poisson(4, 300), 900)
            if case == "rectangular" else _csr_from_lengths(SPMV_CASES[case]))
     op = K.pack_csr(csr, device=card)
-    x = torch.as_tensor(np.random.default_rng(3).uniform(-1, 1, op.m_pad),
+    x = torch.as_tensor(np.random.default_rng(3).uniform(-1, 1, op.shape[1]),
                         dtype=torch.float32, device=card)
     for diag in ((op.diag, None) if op.diag_split else (None,)):
         before = K.LAUNCHES["csr_spmv"]
@@ -687,7 +687,7 @@ def test_csr_spmv_shapes(card, case):
         assert K.LAUNCHES["csr_spmv"] == before + 1
         want = K.csr_spmv_plain(op, x, diag)
         torch.cuda.synchronize()
-        assert got.shape == want.shape == (op.n_pad,)
+        assert got.shape == want.shape == (op.shape[0],)
         if want.abs().max() == 0:
             assert not got.any()
         else:
@@ -712,7 +712,7 @@ def test_chains_shapes(card, case):
     products against csr_spmv bit for bit, and 5 + 5 steps against 10."""
     op = K.pack_csr(_with_diagonal(_csr_from_lengths(SPMV_CASES[case])),
                     device=card)
-    x = torch.as_tensor(np.random.default_rng(3).uniform(-1, 1, op.n_pad),
+    x = torch.as_tensor(np.random.default_rng(3).uniform(-1, 1, op.shape[0]),
                         dtype=torch.float32, device=card)
     for wr in (False, True, "norm"):
         got = K.neumann_chain(op, x, 12, wr)

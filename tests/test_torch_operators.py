@@ -59,7 +59,7 @@ def test_dia_layout(banded):
     _, _, jop, pop = banded
     assert type(pop).__name__ == "DiaOperator"
     assert pop.offsets == jop.offsets == (-3, -2, -1, 0, 1, 2, 3)
-    assert pop.n_pad == pop.m_pad == N and pop.nnz == jop.nnz
+    assert pop.shape == (N, N) and pop.nnz == jop.nnz
     np.testing.assert_array_equal(pop.data.numpy(), np.asarray(jop.data)[:, :N])
     np.testing.assert_array_equal(pop.inv_diag.numpy(),
                                   np.asarray(jop.inv_diag)[:N])

@@ -163,7 +163,7 @@ def test_row_blocks_partition(case):
     else:
         op = _offdiag_op(PARTITION_CASES[case])
     indptr = op.indptr.numpy().astype(np.int64)
-    n = op.n_pad
+    n = op.shape[0]
     lengths = np.diff(indptr)
     blocks = op.row_blocks
     assert blocks.dtype == torch.int32 and blocks.device == op.device
@@ -193,7 +193,7 @@ def test_row_blocks_built_lazily():
     (the plain version) never builds it."""
     op = _offdiag_op(PARTITION_CASES["random"])
     assert op._row_blocks is None
-    op.matvec(torch.ones(op.m_pad))
+    op.matvec(torch.ones(op.shape[1]))
     assert op._row_blocks is None
     first = op.row_blocks
     assert op._row_blocks is first and op.row_blocks is first

@@ -1,7 +1,8 @@
 """The port's spans and counters (``sublinear_tpu_torch/tracing.py``): off
 without a profiler, and under one the spans of ``solve``, ``solve_batch``
 and personalized PageRank nested as the benchmark reads them, the copy and
-sync counts worked out from the code, and the same answers."""
+sync counts worked out from the code (on the paths no cell runs too), and
+the same answers."""
 import json
 from pathlib import Path
 
@@ -12,8 +13,12 @@ from torch.profiler import ProfilerActivity, profile
 
 import sublinear_tpu_torch as slp
 from sublinear_tpu_torch import config, tracing
+from sublinear_tpu_torch.formats.streaming import StreamingOperator
 from sublinear_tpu_torch.graph import personalized_pagerank
+from sublinear_tpu_torch.graph.social import degroot_consensus
 from sublinear_tpu_torch.parallel.sharded import solve_batch
+from sublinear_tpu_torch.solvers import bmssp, random_walk
+from sublinear_tpu_torch.solvers.refine import solve_refined
 from sublinear_tpu_torch.utils import profiling
 
 from torch_parity import dd_coo, port_on_cpu, spd_coo  # noqa: F401
@@ -272,3 +277,90 @@ def test_krylov_answers_are_bit_equal_traced_and_not(spd_system, method,
     assert traced.iterations == plain.iterations
     assert traced.residual == plain.residual
     np.testing.assert_array_equal(traced.solution, plain.solution)
+
+
+# ------------------------------------------------ the reads of other paths
+
+SMALL = 240  # the dense route: no row-block partition is read back
+CHECK = slp.SolverOptions().check_every
+
+
+@pytest.fixture(scope="module")
+def small():
+    A = slp.Matrix.from_coo(*dd_coo(SMALL, seed=17), (SMALL, SMALL))
+    b = np.random.default_rng(4).uniform(-1, 1, SMALL)
+    slp.solve(A, b, method="neumann")  # packs the operator, analyzes A
+    return A, b
+
+
+def _degroot(A, b):
+    out, _, counts = _traced(lambda: degroot_consensus(A, b, steps=10))
+    assert len(out["opinions"]) == SMALL
+    return counts, 1, SMALL * 4  # the opinions
+
+
+def _streaming(A, b):
+    S = StreamingOperator(A.csr, panel_budget=1, device=A.device)
+    assert S.n_panels == 2
+    y, _, counts = _traced(lambda: S.matvec(b))
+    np.testing.assert_allclose(y, A.csr.matvec(b), rtol=1e-5, atol=1e-5)
+    return counts, 1, SMALL * 4  # y, in float32
+
+
+def _refined(A, b):
+    r, spans, counts = _traced(lambda: solve_refined(
+        A, b, slp.SolverOptions(epsilon=1e-10), method="neumann",
+        raise_on_fail=False))
+    solves = [name for _, _, name in spans].count("slt.solve")
+    assert solves >= 2
+    # on the CPU the residuals are host products; each inner Neumann solve
+    # reads its initial residual, one residual a chunk, two tail norms, x
+    chunks = r.iterations // CHECK
+    return counts, 4 * solves + chunks, (3 + SMALL) * 4 * solves + 4 * chunks
+
+
+def _push(A, b):
+    r, _, counts = _traced(lambda: slp.solve(
+        A, b, method="forward-push", raise_on_fail=False))
+    chunks = r.iterations // CHECK
+    assert chunks >= 2
+    # the initial residual, one a chunk, x
+    return counts, 1 + chunks + 1, (1 + chunks) * 4 + SMALL * 4
+
+
+def _random_walk(A, b):
+    walks = 16
+    r, _, counts = _traced(lambda: slp.solve(
+        A, b, method="random-walk", num_walks=walks, raise_on_fail=False))
+    max_len = min(slp.SolverOptions().max_walk_length, 512)
+    blocks = -(-r.iterations // random_walk.WALK_BLOCK)
+    assert 2 <= blocks < max_len // random_walk.WALK_BLOCK
+    # the alive flag (a bool) after each block, the step count (int64), the
+    # walkers' sums (one chunk of SMALL * walks walkers)
+    return counts, blocks + 2, blocks + 8 + SMALL * walks * 4
+
+
+def _bmssp(A, b):
+    e = np.zeros(SMALL)
+    e[5] = 1.0
+    r, _, counts = _traced(lambda: slp.solve(A, e, method="bmssp",
+                                             raise_on_fail=False))
+    assert r.method == "bmssp"
+    blocks = -(-r.iterations // bmssp.SWEEP_BLOCK)
+    # the changed flag (a bool) after each block, the sweep count (int64),
+    # the distances and x
+    return counts, blocks + 3, blocks + 8 + 2 * SMALL * 4
+
+
+READ_PATHS = {"degroot_consensus": _degroot, "streaming_matvec": _streaming,
+              "solve_refined": _refined, "forward-push": _push,
+              "random-walk": _random_walk, "bmssp": _bmssp}
+
+
+@pytest.mark.parametrize("path", sorted(READ_PATHS))
+def test_every_read_of_a_path_is_counted(small, path):
+    """``host_syncs`` and ``d2h_bytes`` count each blocking read that the
+    path makes, worked out from its code."""
+    counts, syncs, nbytes = READ_PATHS[path](*small)
+    assert counts.get("host_syncs", 0) == syncs
+    assert counts.get("d2h_bytes", 0) == nbytes

@@ -65,7 +65,7 @@ def test_sampling_tables_bit_identical(route):
         got = getattr(tp, name).numpy()
         assert got.dtype == want.dtype, name
         np.testing.assert_array_equal(got, want, err_msg=name)
-    assert tp.n_pad == n
+    assert tp.S.shape == (n,)
     assert RW.sampling_tables(p) is tp  # cached
 
 
