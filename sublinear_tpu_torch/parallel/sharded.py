@@ -18,7 +18,9 @@ B and X cross between host and device once each and are converted on the
 device: B goes up in the caller's own dtype and strides, and its column
 norms and its copy in the operator's dtype are made there (``_prepare``); X
 comes down widened to float64 (``_download``), into pinned host memory on a
-CUDA device.
+CUDA device.  A B larger than one staging chunk goes up to a CUDA device
+through a bounded ring of pinned buffers, the host filling one while the
+card copies the ones before it (``_staged_upload``).
 """
 from __future__ import annotations
 
@@ -36,6 +38,10 @@ from ..types import SolverOptions, SolverResult
 
 _TINY = 1e-30
 CHAIN_MAX_RHS = 32
+# B's route to a CUDA device: chunks of _STAGE_BYTES through _STAGE_DEPTH
+# pinned buffers (sizes chosen by a sweep on an H100, PERF.md §6)
+_STAGE_BYTES = 16 << 20
+_STAGE_DEPTH = 3
 
 
 def _col_norms(R: torch.Tensor) -> np.ndarray:
@@ -116,19 +122,68 @@ def _chain_columns(op, Bt, thr_cols, options: SolverOptions):
     return torch.stack(xs, dim=1), max(ks), np.asarray(ress)
 
 
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """The memory of a dense tensor with no negative stride as one flat
+    uint8 tensor, in memory order."""
+    return t.as_strided((t.numel(),), (1,)).view(torch.uint8)
+
+
+def _staged_upload(src: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """The host tensor ``src`` copied to ``dev``, with the strides that
+    ``src.to(dev)`` gives it, through a ring of ``_STAGE_DEPTH`` host
+    buffers of ``_STAGE_BYTES``.  Its memory goes up as flat chunks in
+    memory order, so a C- and an F-ordered block take the same walk: the
+    host fills a buffer from one chunk (torch's threaded ``copy_``) and
+    queues its copy on the current stream, then fills the next while the
+    card copies; it refills a buffer only once the event recorded after
+    that buffer's last copy has passed.  The buffers come from torch's
+    caching host allocator, pinned for a CUDA ``dev``, and go back to it
+    when the call returns, so a call holds at most ``_STAGE_BYTES *
+    _STAGE_DEPTH`` pinned bytes whatever src's size, and nothing is kept
+    by the caller's buffer.  For a CPU ``dev`` the buffers are plain
+    memory and every copy is done when it returns."""
+    dst = torch.empty_like(src, device=dev)
+    if dst.stride() != src.stride():  # not dense: laid out as dst first
+        src = torch.empty_like(src).copy_(src)
+    pin = dev.type == "cuda"
+    stream = torch.cuda.current_stream(dev) if pin else None
+    ring = [(torch.empty(_STAGE_BYTES, dtype=torch.uint8, pin_memory=pin),
+             torch.cuda.Event() if pin else None)
+            for _ in range(_STAGE_DEPTH)]
+    src_b, dst_b = _bytes(src), _bytes(dst)
+    for i, start in enumerate(range(0, src_b.numel(), _STAGE_BYTES)):
+        buf, copied = ring[i % _STAGE_DEPTH]
+        if copied is not None:
+            copied.synchronize()  # no-op before the buffer's first copy
+        chunk = src_b[start:start + _STAGE_BYTES]
+        staged = buf[:chunk.numel()].copy_(chunk)
+        dst_b[start:start + chunk.numel()].copy_(staged, non_blocking=True)
+        if copied is not None:
+            copied.record(stream)
+    return dst
+
+
 def _prepare(B: np.ndarray, dtype: torch.dtype, dev: torch.device,
              rows: bool):
     """B on ``dev`` in ``dtype``, contiguous n-major (n, nrhs), or as
     (nrhs, n) rows where ``rows``, and B's float64 column 2-norms read back
     to the host.  B goes up once in its own dtype and strides (an F-ordered
     view goes up F-ordered; on the CPU the tensor shares B's memory), span
-    ``slt.to_device``, its bytes counted in ``h2d_bytes``; the conversions
-    and the transpose run on the device."""
+    ``slt.to_device``, its bytes counted in ``h2d_bytes``; to a CUDA device
+    a B of more than ``_STAGE_BYTES`` goes through ``_staged_upload``, its
+    bytes counted in ``pinned_h2d_bytes`` too.  The conversions and the
+    transpose run on the device."""
     with tracing.span("slt.to_device"):
         if min(B.strides, default=0) < 0:  # torch takes no negative stride
             B = np.ascontiguousarray(B)
-        B_dev = torch.from_numpy(B).to(dev)
-        tracing.count("h2d_bytes", B_dev.numel() * B_dev.element_size())
+        src = torch.from_numpy(B)
+        nbytes = src.numel() * src.element_size()
+        if dev.type == "cuda" and nbytes > _STAGE_BYTES:
+            B_dev = _staged_upload(src, dev)
+            tracing.count("pinned_h2d_bytes", nbytes)
+        else:
+            B_dev = src.to(dev)
+        tracing.count("h2d_bytes", nbytes)
     norms = _col_norms(B_dev.to(torch.float64))
     B_op = B_dev.to(dtype)
     return (B_op.T if rows else B_op).contiguous(), norms

@@ -16,6 +16,8 @@ names start with ``slt.``.  Counters:
 
   h2d_bytes   bytes of the device tensors made from host arrays
               (``config.to_device``, ``solve_batch``'s B)
+  pinned_h2d_bytes  of those, the bytes staged through pinned host memory
+              (``parallel/sharded.py::_staged_upload``)
   d2h_bytes   bytes read back from the device (``config.to_host``,
               ``config.host_float``, ``solve_batch``'s B norms and X, the
               batch loops' column norms and the per-step CG and BiCGSTAB

@@ -233,3 +233,83 @@ def test_device_preparation_equals_host_preparation(layout, method, cols):
         np.testing.assert_array_equal(r.solution, X[:, j])
         assert r.solution.dtype == np.float64
         assert (r.iterations, r.residual, r.converged) == (k, res[j], conv[j])
+
+
+# ------------------------------------ B staged through a bounded buffer ring
+
+STAGE = 4096  # a chunk small enough that the blocks below take many
+
+
+@pytest.fixture
+def small_chunks(monkeypatch):
+    monkeypatch.setattr(PS, "_STAGE_BYTES", STAGE)
+
+
+def _bits(t):
+    """t's bits as integers of its width: equal only where every bit is."""
+    return t.view({8: torch.int64, 4: torch.int32}[t.element_size()])
+
+
+def _stage_block(layout):
+    R = np.random.default_rng(9).standard_normal((1000, 24))  # 46.875 chunks
+    return {"c64-ragged": lambda: R,
+            "c64-exact": lambda: R[:512].copy(),  # 24 chunks
+            "f64": lambda: np.asfortranarray(R),
+            "f32": lambda: R.astype(np.float32),
+            "neg-stride": lambda: R[::-1],
+            "gapped": lambda: np.asfortranarray(R)[:, ::2],
+            "small": lambda: R[:10]}[layout]()
+
+
+@pytest.mark.parametrize("layout", ["c64-ragged", "c64-exact", "f64", "f32",
+                                    "neg-stride", "gapped", "small"])
+def test_staged_upload_walks_every_chunk(small_chunks, layout):
+    """``_staged_upload``'s walk over B's memory, run here with plain
+    buffers: a copy of B bit for bit, in memory of its own, with the
+    strides that ``B.to(device)`` gives (a gapped view laid out densely in
+    its own order), whether or not the size is a multiple of the chunk."""
+    B = _stage_block(layout)
+    src = torch.from_numpy(B if min(B.strides) >= 0
+                           else np.ascontiguousarray(B))
+    got = PS._staged_upload(src, torch.device("cpu"))
+    assert got.stride() == src.to("meta").stride()
+    assert got.data_ptr() != src.data_ptr()
+    assert torch.equal(_bits(got), _bits(src))
+
+
+def test_staging_holds_a_bounded_ring(small_chunks, monkeypatch):
+    """However large B is, one upload takes ``_STAGE_DEPTH`` buffers of one
+    chunk each from the host allocator."""
+    B = np.random.default_rng(10).standard_normal((4000, 16))
+    assert B.nbytes > 10 * STAGE * PS._STAGE_DEPTH
+    taken = []
+    empty = torch.empty
+
+    def counting(*args, **kwargs):
+        taken.append(args[0])
+        return empty(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", counting)
+    got = PS._staged_upload(torch.from_numpy(B), torch.device("cpu"))
+    monkeypatch.undo()
+    assert taken == [STAGE] * PS._STAGE_DEPTH
+    assert torch.equal(got, torch.from_numpy(B))
+
+
+@pytest.mark.parametrize("method,cols", [("neumann", 128), ("cg", 128),
+                                         ("chain", 20)])
+def test_answers_outlive_a_mutated_rhs(method, cols):
+    """B written over after ``solve_batch`` returns changes none of the
+    answers it returned."""
+    A = prep_system("spd" if method == "cg" else "dd")
+    B = np.random.default_rng(cols).uniform(-1, 1, (PREP_N, cols))
+    opts = slp.SolverOptions(epsilon=EPS)
+    method = "neumann" if method == "chain" else method
+    got = PS.solve_batch(A, B, opts, method=method)
+    kept = [(r.solution.copy(), r.iterations, r.residual) for r in got]
+    want = PS.solve_batch(A, B.copy(), opts, method=method)
+    B[:] = np.nan
+    for r, w, (x, k, res) in zip(got, want, kept):
+        np.testing.assert_array_equal(r.solution, x)
+        np.testing.assert_array_equal(r.solution, w.solution)
+        assert (r.iterations, r.residual) == (k, res)

@@ -26,6 +26,7 @@ from sublinear_tpu_torch.ops import csr_spmv as K
 from sublinear_tpu_torch.formats.csr import CSR
 from sublinear_tpu_torch.ops import dense_fused as DF
 from sublinear_tpu_torch.ops import tiled_spmm as TS
+from sublinear_tpu_torch.parallel import sharded as PS
 from sublinear_tpu_torch.parallel.sharded import solve_batch
 from sublinear_tpu_torch.solvers.fused import solve_neumann_fused
 
@@ -157,20 +158,25 @@ def test_solve_on_card(op):
     assert r.converged and rel < 1e-5
 
 
-def test_cg_solve_on_card():
-    """solve(method="cg") on a symmetric matrix takes the chain path."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    a = slp.generate("random-sparse", 20_000, seed=7, density=5e-4)
+def _spd_card(n=20_000):
+    """The n-row random-sparse matrix made symmetric, strictly DD."""
+    a = slp.generate("random-sparse", n, seed=7, density=5e-4)
     rows, cols, vals = a.csr.to_coo()
     up = rows < cols
     rows, cols, vals = (np.r_[rows[up], cols[up]], np.r_[cols[up], rows[up]],
                         np.r_[vals[up], vals[up]])
-    diag = np.zeros(20_000)
+    diag = np.zeros(n)
     np.add.at(diag, rows, np.abs(vals))
-    d = np.arange(20_000)
-    spd = slp.Matrix.from_coo(np.r_[rows, d], np.r_[cols, d],
-                              np.r_[vals, 1.5 * diag + 1.0], (20_000, 20_000))
+    d = np.arange(n)
+    return slp.Matrix.from_coo(np.r_[rows, d], np.r_[cols, d],
+                               np.r_[vals, 1.5 * diag + 1.0], (n, n))
+
+
+def test_cg_solve_on_card():
+    """solve(method="cg") on a symmetric matrix takes the chain path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    spd = _spd_card()
     b = slp.rhs(20_000, seed=7)
     before = K.LAUNCHES["cg_step"]
     r = slp.solve(spd, b, method="cg", epsilon=1e-6)
@@ -788,6 +794,115 @@ def test_solve_batch_lands_in_pinned_memory(card):
     assert isinstance(base, torch.Tensor) and base.is_pinned()
     assert base.dtype == torch.float64 and tuple(base.shape) == B.shape
     assert all(r.solution.base.base is base for r in results)
+
+
+def _upload_block(layout):
+    """Host blocks for the staged upload of B (``_STAGE_BYTES`` 16 MiB): a
+    multiple of the chunk, a byte size that is not, F-ordered, float32, a
+    negative-stride view, and a block under one chunk."""
+    chunk_rows = PS._STAGE_BYTES // (8 * 64)  # float64 rows of 64 columns
+    rng = np.random.default_rng(3)
+    R = rng.standard_normal((3 * chunk_rows + 777, 64))
+    return {"c64-exact": lambda: R[:3 * chunk_rows].copy(),
+            "c64-ragged": lambda: R,
+            "f64": lambda: np.asfortranarray(R),
+            "f32": lambda: R.astype(np.float32),
+            "neg-stride": lambda: R[::-1],
+            "small": lambda: R[:1000]}[layout]()
+
+
+def _bits(t):
+    """t's bits as integers of its width: equal only where every bit is."""
+    return t.view({8: torch.int64, 4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.parametrize("layout", ["c64-exact", "c64-ragged", "f64", "f32",
+                                    "neg-stride", "small"])
+def test_staged_upload_is_the_single_copy(card, layout):
+    """B staged through the pinned ring equals the single copy
+    ``torch.from_numpy(B).to(dev)`` bit for bit, with the same strides;
+    ``_prepare`` stages only a B over one chunk, counted in
+    ``pinned_h2d_bytes``, and counts every B in ``h2d_bytes``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sublinear_tpu_torch import tracing
+
+    B = _upload_block(layout)
+    src = torch.from_numpy(B if min(B.strides) >= 0 else B.copy())
+    want = src.to(card)
+    got = PS._staged_upload(src, card)
+    assert got.stride() == want.stride()
+    assert torch.equal(_bits(got), _bits(want))
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        prepared, _ = PS._prepare(B, want.dtype, card, rows=False)
+    counts = tracing.counters()
+    assert torch.equal(_bits(prepared), _bits(want.contiguous()))
+    staged = layout != "small"
+    assert (B.nbytes > PS._STAGE_BYTES) == staged
+    assert counts.get("pinned_h2d_bytes", 0) == (B.nbytes if staged else 0)
+    assert counts["h2d_bytes"] == B.nbytes
+
+
+def _single_copy_solve(monkeypatch, *args, **kwargs):
+    """solve_batch with B up as one pageable copy, the route before the
+    staging ring: no B is larger than the chunk."""
+    with monkeypatch.context() as m:
+        m.setattr(PS, "_STAGE_BYTES", 1 << 62)
+        return solve_batch(*args, **kwargs)
+
+
+@pytest.mark.parametrize("method,order", [("neumann", "C"), ("neumann", "F"),
+                                          ("cg", "C")])
+def test_staged_solve_batch_equals_single_copy(card, monkeypatch, method,
+                                               order):
+    """Solutions, iterations, residuals and flags bit-equal to the single
+    pageable copy's on a staged (20,000, 128) float64 B (20.5 MB); B mutated
+    after the call changes no answer."""
+    a = (_spd_card() if method == "cg"
+         else slp.generate("random-sparse", 20_000, seed=7, density=5e-4))
+    B = np.random.default_rng(4).standard_normal((20_000, 128))
+    B = np.asfortranarray(B) if order == "F" else B
+    assert B.nbytes > PS._STAGE_BYTES
+    want = _single_copy_solve(monkeypatch, a, B, method=method)
+    got = solve_batch(a, B, method=method)
+    kept = [r.solution.copy() for r in got]
+    B[:] = np.nan
+    for g, w, x in zip(got, want, kept):
+        np.testing.assert_array_equal(g.solution, w.solution)
+        np.testing.assert_array_equal(g.solution, x)
+        assert (g.iterations, g.residual, g.converged) == (
+            w.iterations, w.residual, w.converged)
+
+
+def test_staging_pins_a_bounded_ring(card, monkeypatch):
+    """Uploading a 204.8 MB B (over four times the ring) asks torch's
+    caching host allocator for ``_STAGE_DEPTH`` pinned buffers of
+    ``_STAGE_BYTES`` a call, and once the first call has made them, later
+    calls make no new pinned block (its ``num_host_alloc``)."""
+    B = np.random.default_rng(5).standard_normal((200_000, 128))
+    src = torch.from_numpy(B)
+    assert B.nbytes > 4 * PS._STAGE_BYTES * PS._STAGE_DEPTH
+    made = torch.cuda.host_memory_stats()["num_host_alloc"]
+    PS._staged_upload(src, card)
+    torch.cuda.synchronize()
+    warm = torch.cuda.host_memory_stats()["num_host_alloc"]
+    assert warm - made <= PS._STAGE_DEPTH
+    pinned = []
+    empty = torch.empty
+
+    def counting(*args, **kwargs):
+        if kwargs.get("pin_memory"):
+            pinned.append(args[0])
+        return empty(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", counting)
+    for _ in range(3):
+        got = PS._staged_upload(src, card)
+    torch.cuda.synchronize()
+    assert pinned == [PS._STAGE_BYTES] * (3 * PS._STAGE_DEPTH)
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == warm
+    assert torch.equal(got.cpu(), src)
 
 
 # ------------------------------------------------------------ solver family

@@ -131,6 +131,20 @@ def test_solve_batch_spans_and_copies(system):
     assert "pinned_d2h_bytes" not in counts  # no pinned copy on the CPU
 
 
+def test_solve_batch_stages_nothing_on_the_cpu(system, monkeypatch):
+    """On the CPU, B is never staged, however many chunks it spans: no
+    ``pinned_h2d_bytes``, and ``h2d_bytes`` counts B as given."""
+    from sublinear_tpu_torch.parallel import sharded
+
+    A, _, B = system
+    monkeypatch.setattr(sharded, "_STAGE_BYTES", 4096)
+    assert B.nbytes > 10 * sharded._STAGE_BYTES
+    _, _, counts = _traced(
+        lambda: solve_batch(A, B, slp.SolverOptions(), method="neumann"))
+    assert counts["h2d_bytes"] == B.nbytes
+    assert "pinned_h2d_bytes" not in counts
+
+
 # the spans of P^T's build, which a graph's first PageRank call makes
 TRANSITION_SPANS = ("slt.pagerank.transition", "slt.matrix.from_coo",
                     "slt.matrix.dia_probe", "slt.matrix.pack",
