@@ -1,0 +1,6 @@
+"""``solve.loop_host_ms`` read in the 1m stream: the same reader, under a name
+of its own, because ``bench_port/tests/test_program.py`` holds
+``solve.loop_host_ms``'s cells to the 100k stream alone."""
+from bench_port import lookup
+
+read = lookup.load(lookup.METRICS_DIR, "solve.loop_host_ms").read

@@ -95,13 +95,28 @@ def to_device(a, dtype: torch.dtype, dev=None) -> torch.Tensor:
 
 def to_host(t: torch.Tensor, dtype=None) -> np.ndarray:
     """A tensor as a NumPy array on the host, converted to ``dtype`` (a
-    NumPy dtype) by NumPy where given: the host waits for the device's
-    work on ``t``.  On the CPU the array may share ``t``'s memory when no
-    ``dtype`` is given.  Span ``slt.to_host``; counts one ``host_syncs``
-    and the tensor's bytes in ``d2h_bytes``."""
+    NumPy dtype) where given: the host waits for the device's work on
+    ``t``.  From a CUDA device the card converts, and the array lands in a
+    pinned tensor of torch's caching host allocator, whose ``.numpy()``
+    view this returns: the view holds the tensor, and the allocator reuses
+    the block only once the view and every array made from it are gone.
+    On the CPU NumPy converts, and the array may share ``t``'s memory when
+    no ``dtype`` is given.  Span ``slt.to_host``; counts one
+    ``host_syncs``, the bytes read in ``d2h_bytes`` and, pinned, in
+    ``pinned_d2h_bytes``."""
     with tracing.span("slt.to_host"):
+        t = t.detach()
+        if t.is_cuda:
+            if dtype is not None:
+                t = t.to(torch.from_numpy(np.empty(0, dtype)).dtype)
+            nbytes = t.numel() * t.element_size()
+            tracing.count_read(nbytes)
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t)
+            tracing.count("pinned_d2h_bytes", nbytes)
+            return host.numpy()
         tracing.count_read(t.numel() * t.element_size())
-        host = t.detach().cpu().numpy()
+        host = t.cpu().numpy()
         return host if dtype is None else host.astype(dtype)
 
 
@@ -111,6 +126,15 @@ def host_float(t: torch.Tensor) -> float:
     ``d2h_bytes``; no span (its time is the device work it waits for)."""
     tracing.count_read(t.element_size())
     return float(t)
+
+
+def host_pair(a: torch.Tensor, b: torch.Tensor) -> list:
+    """``[float(a), float(b)]`` of two 0-d tensors of one dtype in one
+    blocking read.  Counts one ``host_syncs`` and its bytes in
+    ``d2h_bytes``; no span, as ``host_float``."""
+    pair = torch.stack((a, b))
+    tracing.count_read(pair.numel() * pair.element_size())
+    return pair.tolist()
 
 
 def resolve_dtype(dtype) -> torch.dtype:

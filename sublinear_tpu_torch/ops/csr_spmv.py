@@ -29,7 +29,9 @@ Each has a plain PyTorch version beside it (``csr_spmv_plain``,
 ``neumann_chain_plain``, ``cg_chain_plain``, ``csr_spmm_plain``).  A CPU
 tensor takes the plain version; a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches (one per chain for the two chains),
-``STEPS`` the steps the chains ran.
+``STEPS`` the steps the chains ran.  While a profiler records,
+``neumann_chain`` also counts each chain and its steps on either device
+(``tracing``'s ``neumann_chain_calls`` and ``neumann_chain_steps``).
 The wrappers check an operator's own arrays once (cached against their data
 pointers) and each call's vectors every call.
 """
@@ -443,6 +445,8 @@ def neumann_chain(op: CsrOperator, term0: torch.Tensor, iters: int,
     if with_residual not in (False, True, "norm"):
         raise ValueError(f"with_residual must be False, True or 'norm', "
                          f"got {with_residual!r}")
+    tracing.count("neumann_chain_calls")
+    tracing.count("neumann_chain_steps", iters)
     if term0.is_cpu:
         return neumann_chain_plain(op, term0, iters, with_residual)
 

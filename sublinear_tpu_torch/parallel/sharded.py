@@ -17,8 +17,8 @@ solves (``solvers/neumann.py::_neumann_run`` per column, the
 B and X cross between host and device once each and are converted on the
 device: B goes up in the caller's own dtype and strides, and its column
 norms and its copy in the operator's dtype are made there (``_prepare``); X
-comes down widened to float64 (``_download``), into pinned host memory on a
-CUDA device.  A B larger than one staging chunk goes up to a CUDA device
+comes down widened to float64 (``config.to_host``), into pinned host memory
+on a CUDA device.  A B larger than one staging chunk goes up to a CUDA device
 through a bounded ring of pinned buffers, the host filling one while the
 card copies the ones before it (``_staged_upload``).
 """
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import tracing
+from ..config import to_host
 from ..errors import DimensionMismatchError
 from ..matrix import Matrix
 from ..solvers import base
@@ -189,26 +190,6 @@ def _prepare(B: np.ndarray, dtype: torch.dtype, dev: torch.device,
     return (B_op.T if rows else B_op).contiguous(), norms
 
 
-def _download(X64: torch.Tensor) -> np.ndarray:
-    """X64 (float64) as a host array.  From a CUDA device it lands in a
-    pinned tensor of torch's caching host allocator, whose ``.numpy()``
-    view this returns: the view holds the tensor, and the allocator reuses
-    the block for a later call only once the view and every array made
-    from it are gone, so each call whose solutions are kept holds a pinned
-    block of its own.  On the CPU it is X64's own memory.  Span
-    ``slt.to_host``; counts one ``host_syncs``, the bytes in ``d2h_bytes``
-    and, pinned, in ``pinned_d2h_bytes``."""
-    with tracing.span("slt.to_host"):
-        nbytes = X64.numel() * X64.element_size()
-        tracing.count_read(nbytes)
-        if X64.is_cuda:
-            host = torch.empty(X64.shape, dtype=X64.dtype, pin_memory=True)
-            host.copy_(X64)
-            tracing.count("pinned_d2h_bytes", nbytes)
-            X64 = host
-        return X64.numpy()
-
-
 @tracing.traced("slt.solve_batch")
 def solve_batch(
     matrix: Matrix,
@@ -228,10 +209,10 @@ def solve_batch(
     signature and, as there, not acted on).  ``mesh`` is not ported yet.
 
     Each solution is a column view of one float64 (n, nrhs) host array; on
-    a CUDA device that array is a view of a pinned tensor (``_download``),
-    held by the solutions.  No NumPy pass runs over B or X: a float32 or
-    float64 B is uploaded as given (any other dtype is made float64 first)
-    and converted on the device."""
+    a CUDA device that array is a view of a pinned tensor
+    (``config.to_host``), held by the solutions.  No NumPy pass runs over
+    B or X: a float32 or float64 B is uploaded as given (any other dtype is
+    made float64 first) and converted on the device."""
     options = options or SolverOptions()
     n = matrix.shape[0]
     B = np.asarray(B)
@@ -282,7 +263,7 @@ def solve_batch(
         del B_dev  # freed before X is widened: the peak stays the loop's
         X = X.to(torch.float64)
 
-    X_host = _download(X)
+    X_host = to_host(X)
     res = np.asarray(col_res, dtype=np.float64)
     return [
         SolverResult(

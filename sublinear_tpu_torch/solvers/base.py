@@ -16,8 +16,8 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..config import host_float, to_host
-from ..errors import ConvergenceError, NumericalInstabilityError
+from ..config import host_float, host_pair, to_device, to_host
+from ..errors import ConvergenceError, DimensionMismatchError, NumericalInstabilityError
 from ..matrix import Matrix
 from ..types import ConvergenceMode, ErrorBounds, SolverOptions, SolverResult, SolverStats
 
@@ -57,24 +57,54 @@ def host_norm(v, mode: str) -> float:
     return float(np.sqrt(np.einsum("i,i->", flat, flat)))
 
 
-def threshold_for(b: np.ndarray, options: SolverOptions) -> float:
+def threshold_for(b, options: SolverOptions):
     """Absolute threshold (in the configured norm) implementing
-    relative/absolute convergence."""
+    relative/absolute convergence: a float for a host array ``b``; for a
+    float64 tensor, a ``Threshold`` whose norm of ``b`` is taken and kept
+    on its device."""
     if options.convergence == "absolute":
         return float(options.epsilon)
-    nb = host_norm(b, norm_mode_of(options))
-    return float(options.epsilon) * max(nb, 1e-30)
+    mode = norm_mode_of(options)
+    if isinstance(b, torch.Tensor):
+        return Threshold(device_norm(b, mode), float(options.epsilon))
+    return float(options.epsilon) * max(host_norm(b, mode), 1e-30)
+
+
+class Threshold:
+    """``threshold_for``'s number for a b on the device.  The norm of b
+    waits there until a loop's first read carries it up beside the initial
+    residual (``first_check``), so it takes no read of its own; ``float()``
+    gives the number, reading the norm alone if no loop has."""
+
+    def __init__(self, norm: torch.Tensor, epsilon: float):
+        self.norm, self.epsilon, self.value = norm, epsilon, None
+
+    def resolve(self, nb: float) -> float:
+        self.norm, self.value = None, self.epsilon * max(nb, 1e-30)
+        return self.value
+
+    def __float__(self) -> float:
+        if self.value is None:
+            return self.resolve(host_float(self.norm))
+        return self.value
 
 
 def prepare(matrix: Matrix, b, options: SolverOptions):
     """A solve's prelude: ``(op, b_dev, x0_dev, threshold)``, the matrix's
     operator in ``options.dtype``, b and ``options.x0`` (zeros where None)
-    on its device in the operator's dtype, and ``threshold_for(b)``."""
+    on its device in the operator's dtype, and ``threshold_for(b)``.  b
+    goes up in float64 and the device makes its copy in the operator's
+    dtype and its norm (a ``Threshold``): no NumPy pass runs over it."""
     op = matrix.op(options.dtype)
-    b_dev = matrix.pad_vector(b, options.dtype)
+    b = np.asarray(b, dtype=np.float64).reshape(-1)
+    if b.size != matrix.shape[0]:
+        raise DimensionMismatchError(
+            f"vector length {b.size} != matrix dim {matrix.shape[0]}")
+    b64 = to_device(b, torch.float64, matrix.device)
+    b_dev = b64.to(op.dtype)
     x0_dev = (matrix.pad_vector(options.x0, options.dtype)
               if options.x0 is not None else torch.zeros_like(b_dev))
-    return op, b_dev, x0_dev, threshold_for(b, options)
+    return op, b_dev, x0_dev, threshold_for(b64, options)
 
 
 def chained(op, check_every: int) -> bool:
@@ -94,6 +124,18 @@ def limits(dtype: torch.dtype, threshold: float, change_tol: float = 0.0):
     """(threshold, divergence bound, change tolerance) rounded to the
     residual's dtype, for ``running``."""
     return tuple(_as_dtype(v, dtype) for v in (threshold, HUGE_RES, change_tol))
+
+
+def first_check(res_t: torch.Tensor, threshold, change_tol: float = 0.0):
+    """A loop's first read: ``(res, lims)``, the initial residual ``res_t``
+    (0-d) as a host float and ``limits`` for ``running``.  A ``Threshold``
+    whose norm is still on the device comes up in the same transfer."""
+    if isinstance(threshold, Threshold) and threshold.value is None:
+        res, nb = host_pair(res_t.to(torch.float64), threshold.norm)
+        threshold.resolve(nb)
+    else:
+        res = host_float(res_t)
+    return res, limits(res_t.dtype, float(threshold), change_tol)
 
 
 def running(res: float, change: float, k: int, max_iters: int, lims,
@@ -128,9 +170,8 @@ def while_iterate(step_block: Callable, residual_of: Callable, state0, threshold
     Stops on convergence, divergence (non-finite or exploding residual), or
     iteration budget.  Returns (state, k, res, change) with host numbers.
     """
-    res_t = residual_of(state0)
-    lims = limits(res_t.dtype, threshold, change_tol)
-    res, change = host_float(res_t), math.inf
+    res, lims = first_check(residual_of(state0), threshold, change_tol)
+    change = math.inf
     state, k = state0, 0
     while running(res, change, k, max_iters, lims, mode):
         new_state = step_block(state)
@@ -256,7 +297,8 @@ def finalize(
     return result
 
 
-def check_outcome(result: SolverResult, threshold: float, options: SolverOptions, raise_on_fail: bool, change: float | None = None):
+def check_outcome(result: SolverResult, threshold, options: SolverOptions, raise_on_fail: bool, change: float | None = None):
+    threshold = float(threshold)
     mode = options.convergence_mode
     res_ok = bool(np.isfinite(result.residual) and result.residual <= threshold * 1.0000001)
     if change is not None and mode in (ConvergenceMode.RELATIVE_CHANGE, ConvergenceMode.COMBINED):

@@ -23,20 +23,13 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..config import host_float
+from ..config import host_float, host_pair
 from ..matrix import Matrix
 from ..ops.csr_spmv import dot64
 from ..types import SolverOptions, SolverResult
 from . import base
 
 _TINY = 1e-30
-
-
-def _read_pair(a: torch.Tensor, b: torch.Tensor) -> list:
-    """``[float(a), float(b)]`` of two 0-d tensors in one blocking read."""
-    pair = torch.stack((a, b))
-    tracing.count_read(pair.numel() * pair.element_size())
-    return pair.tolist()
 
 
 @tracing.traced("slt.loop")
@@ -51,9 +44,9 @@ def _cg_run(op, b, x0, threshold, max_iters, precondition, mode="residual",
     z = M(r)
     p, x = z, x0
     rz = torch.dot(r, z)
-    res_t = torch.linalg.vector_norm(r)
-    lims = base.limits(res_t.dtype, threshold, change_tol)
-    res, change, k = host_float(res_t), math.inf, 0
+    res, lims = base.first_check(torch.linalg.vector_norm(r), threshold,
+                                 change_tol)
+    change, k = math.inf, 0
     while base.running(res, change, k, max_iters, lims, mode):
         Ap = op.matvec(p)
         alpha = rz / torch.clamp(torch.dot(p, Ap), min=_TINY)
@@ -67,7 +60,7 @@ def _cg_run(op, b, x0, threshold, max_iters, precondition, mode="residual",
         rz = rz_new
         k += 1
         # the loop's one device-to-host sync
-        res, change = _read_pair(torch.linalg.vector_norm(r), change_t)
+        res, change = host_pair(torch.linalg.vector_norm(r), change_t)
     return x, k, res, change
 
 
@@ -80,9 +73,8 @@ def _cg_chain_run(op, b, x0, threshold, max_iters, check_every):
     r = b - op.matvec(x0)
     z = op.inv_diag * r
     state = (x0, r, z, dot64(r, z))
-    res_t = torch.linalg.vector_norm(r)
-    lims = base.limits(res_t.dtype, threshold)
-    res, k = host_float(res_t), 0
+    res, lims = base.first_check(torch.linalg.vector_norm(r), threshold)
+    k = 0
     chunk = 2 * check_every
     while base.running(res, math.inf, k, max_iters, lims):
         x, r, p, rz, res2 = op.cg_chain(*state, chunk)
@@ -106,9 +98,9 @@ def _bicgstab_run(op, b, x0, threshold, max_iters, mode="residual",
     p = v = torch.zeros_like(b)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     rho = alpha = omega = one
-    res_t = torch.linalg.vector_norm(r)
-    lims = base.limits(res_t.dtype, threshold, change_tol)
-    res, change, k = host_float(res_t), math.inf, 0
+    res, lims = base.first_check(torch.linalg.vector_norm(r), threshold,
+                                 change_tol)
+    change, k = math.inf, 0
     while base.running(res, change, k, max_iters, lims, mode):
         rho_new = torch.dot(rhat, r)
         beta = (rho_new / guard(rho)) * (alpha / guard(omega))
@@ -127,7 +119,7 @@ def _bicgstab_run(op, b, x0, threshold, max_iters, mode="residual",
         rho = rho_new
         k += 1
         # the loop's one device-to-host sync
-        res, change = _read_pair(torch.linalg.vector_norm(r), change_t)
+        res, change = host_pair(torch.linalg.vector_norm(r), change_t)
     return x, k, res, change
 
 

@@ -97,9 +97,8 @@ def solve_neumann_fused(matrix: Matrix, b, options: SolverOptions,
     with base.SolveTimer(matrix.device) as t:
         x = kernel_block(x)
         k = block
-        res_t = residual_of(x)
-        lims = base.limits(res_t.dtype, threshold)
-        res = host_float(res_t)  # the loop's one read per block
+        # the loop's one read per block
+        res, lims = base.first_check(residual_of(x), threshold)
         while base.running(res, math.inf, k, options.max_iterations, lims):
             x = kernel_block(x)
             k += block

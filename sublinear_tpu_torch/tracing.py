@@ -19,14 +19,16 @@ names start with ``slt.``.  Counters:
   pinned_h2d_bytes  of those, the bytes staged through pinned host memory
               (``parallel/sharded.py::_staged_upload``)
   d2h_bytes   bytes read back from the device (``config.to_host``,
-              ``config.host_float``, ``solve_batch``'s B norms and X, the
-              batch loops' column norms and the per-step CG and BiCGSTAB
-              loops' residual and change)
+              ``config.host_float``, ``config.host_pair``, ``solve_batch``'s
+              B norms, the batch loops' column norms)
   pinned_d2h_bytes  of those, the bytes landed in pinned host memory
-              (``parallel/sharded.py::_download``)
+              (``config.to_host`` from a CUDA device)
   host_syncs  blocking reads of device data: each of the reads above
   cg_chain_calls  chunks of CG steps run as one ``op.cg_chain`` call
               (``solvers/cg.py::_cg_chain_run``)
+  neumann_chain_calls  chains of Neumann steps run as one
+              ``op.neumann_chain`` call (``ops/csr_spmv.py::neumann_chain``)
+  neumann_chain_steps  the steps of those chains
   pagerank_transition_builds  PageRank calls that built P^T's operator
               and dangling mask (``graph/pagerank.py::_transition_inputs``)
   pagerank_transition_hits    PageRank calls that found them built on

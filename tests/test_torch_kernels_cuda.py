@@ -796,6 +796,55 @@ def test_solve_batch_lands_in_pinned_memory(card):
     assert all(r.solution.base.base is base for r in results)
 
 
+@pytest.mark.parametrize("dtype", [None, np.float64])
+def test_to_host_lands_in_pinned_memory(card, dtype):
+    """``config.to_host`` from the card: the card widens, the array is a
+    view of a pinned tensor, and its bits are NumPy's widening of the
+    tensor's own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sublinear_tpu_torch import config, tracing
+
+    t = torch.randn(100_003, device=card)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = config.to_host(t, dtype)
+    counts = tracing.counters()
+    want = t.cpu().numpy()
+    want = want if dtype is None else want.astype(dtype)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    assert isinstance(got.base, torch.Tensor) and got.base.is_pinned()
+    assert counts["pinned_d2h_bytes"] == counts["d2h_bytes"] == want.nbytes
+    assert counts["host_syncs"] == 1
+
+
+def test_prepare_on_the_card_equals_the_host_preparation(card):
+    """b goes up in float64 and the card makes its float32 copy and its
+    norm, which waits there as a ``Threshold``: b, the threshold (to
+    1e-14), the iterations and the solution equal those of NumPy's cast, a
+    host norm and a host widening of x."""
+    from sublinear_tpu_torch.solvers import base, neumann
+
+    a = slp.generate("random-sparse", 20_000, seed=7, density=5e-4)
+    opts = slp.SolverOptions(epsilon=1e-6)
+    for seed in range(3):
+        b = np.random.default_rng(seed).uniform(-1, 1, 20_000)
+        op, b_dev, x0, thr = base.prepare(a, b, opts)
+        host_b = torch.from_numpy(b.astype(np.float32)).to(card)
+        assert torch.equal(b_dev, host_b)
+        host_thr = base.threshold_for(b, opts)
+        assert isinstance(thr, base.Threshold) and thr.value is None
+        assert abs(float(thr) - host_thr) <= 1e-14 * host_thr
+        x, k = neumann._neumann_run(op, host_b, torch.zeros_like(host_b),
+                                    host_thr, opts.max_iterations,
+                                    opts.check_every)[:2]
+        r = slp.solve(a, b, method="neumann", epsilon=1e-6)
+        assert r.iterations == k
+        np.testing.assert_array_equal(
+            r.solution, x.cpu().numpy().astype(np.float64))
+
+
 def _upload_block(layout):
     """Host blocks for the staged upload of B (``_STAGE_BYTES`` 16 MiB): a
     multiple of the chunk, a byte size that is not, F-ordered, float32, a

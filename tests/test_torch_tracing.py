@@ -108,10 +108,78 @@ def test_solve_spans_and_syncs(system):
                                "slt.to_host": {"slt.solve"}}
     chunks = r.iterations // slp.SolverOptions().check_every
     assert chunks >= 2
-    # the initial residual, one per chunk, the two tail norms, x
+    # the initial residual with b's float64 norm (the threshold), one per
+    # chunk, the two tail norms, x
     assert counts["host_syncs"] == 1 + chunks + 2 + 1
-    assert counts["h2d_bytes"] == N * 4  # b in float32
-    assert counts["d2h_bytes"] == (1 + chunks + 2) * 4 + N * 4
+    assert counts["h2d_bytes"] == N * 8  # b in float64
+    assert counts["d2h_bytes"] == 2 * 8 + (chunks + 2) * 4 + N * 4
+
+
+def test_neumann_chain_calls_and_steps(system):
+    A, b, _ = system
+    r, _, counts = _traced(lambda: slp.solve(A, b, method="neumann"))
+    check = slp.SolverOptions().check_every
+    chunks = r.iterations // check
+    assert chunks >= 2
+    assert counts["neumann_chain_calls"] == chunks
+    assert counts["neumann_chain_steps"] == chunks * check
+
+
+@pytest.mark.parametrize("traced", [True, False],
+                         ids=["check_every_1", "no_profiler"])
+def test_neumann_chain_counts_nothing_off_its_path(system, traced):
+    """The per-step loop (``check_every=1``) runs no chain, and without a
+    profiler nothing is counted."""
+    A, b, _ = system
+    if traced:
+        r, _, counts = _traced(
+            lambda: slp.solve(A, b, method="neumann", check_every=1))
+        assert r.iterations >= 2 and counts["host_syncs"] >= 2
+    else:
+        tracing.reset()
+        slp.solve(A, b, method="neumann")
+        counts = tracing.counters()
+    assert counts.get("neumann_chain_calls", 0) == 0
+    assert counts.get("neumann_chain_steps", 0) == 0
+
+
+@pytest.mark.parametrize("mode", ["l2", "l1", "max"])
+def test_threshold_rides_on_the_first_read(system, mode):
+    """``prepare``'s threshold waits on the device as b's float64 norm and
+    comes up beside the first residual: one read of 16 bytes for both, and
+    the number the host norm gives to 1e-14."""
+    from sublinear_tpu_torch.solvers import base
+
+    A, b, _ = system
+    opts = slp.SolverOptions(convergence_mode=mode)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _, b_dev, _, thr = base.prepare(A, b, opts)
+        assert isinstance(thr, base.Threshold) and thr.value is None
+        res, lims = base.first_check(torch.linalg.vector_norm(b_dev), thr)
+    counts = tracing.counters()
+    assert counts["host_syncs"] == 1 and counts["d2h_bytes"] == 16
+    want = base.threshold_for(b, opts)
+    assert abs(float(thr) - want) <= 1e-14 * want
+    assert lims[0] == base.limits(torch.float32, want)[0]
+    assert res == float(torch.linalg.vector_norm(b_dev))
+
+
+def test_threshold_read_alone_and_absolute(system):
+    """A ``Threshold`` that no loop has read reads its norm once on
+    ``float()``; absolute convergence needs no norm at all."""
+    from sublinear_tpu_torch.solvers import base
+
+    A, b, _ = system
+    _, _, _, thr = base.prepare(A, b, slp.SolverOptions())
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        first = float(thr)
+        again = float(thr)
+    assert first == again
+    assert tracing.counters() == {"host_syncs": 1, "d2h_bytes": 8}
+    absolute = slp.SolverOptions(convergence="absolute", epsilon=1e-7)
+    assert base.prepare(A, b, absolute)[3] == 1e-7
 
 
 def test_solve_batch_spans_and_copies(system):
@@ -258,9 +326,9 @@ def test_cg_chain_spans_syncs_and_chunks(spd_system):
     chunks = _chunks(r.iterations, slp.SolverOptions().check_every)
     assert chunks >= 1
     assert counts["cg_chain_calls"] == chunks
-    # the initial residual, ||r||^2 once per chunk, x
+    # the initial residual with b's norm, ||r||^2 once per chunk, x
     assert counts["host_syncs"] == 1 + chunks + 1
-    assert counts["d2h_bytes"] == (1 + chunks) * 4 + N * 4
+    assert counts["d2h_bytes"] == 2 * 8 + chunks * 4 + N * 4
 
 
 @pytest.mark.parametrize("method,options", [("cg", {"check_every": 1}),
@@ -274,9 +342,10 @@ def test_per_step_krylov_loops_count_one_read_a_step(spd_system, method,
     assert _parents(spans)["slt.loop"] == {"slt.solve"}
     k = r.iterations
     assert k >= 2 and "cg_chain_calls" not in counts
-    # the initial residual, (residual, change) once per step, x
+    # the initial residual with b's norm, (residual, change) once per
+    # step, x
     assert counts["host_syncs"] == 1 + k + 1
-    assert counts["d2h_bytes"] == 4 + k * 2 * 4 + N * 4
+    assert counts["d2h_bytes"] == 2 * 8 + k * 2 * 4 + N * 4
 
 
 @pytest.mark.parametrize("method,options", [("cg", {}), ("cg", {"check_every": 1}),
@@ -328,9 +397,11 @@ def _refined(A, b):
     solves = [name for _, _, name in spans].count("slt.solve")
     assert solves >= 2
     # on the CPU the residuals are host products; each inner Neumann solve
-    # reads its initial residual, one residual a chunk, two tail norms, x
+    # reads its initial residual with b's float64 norm, one residual a
+    # chunk, two tail norms, x
     chunks = r.iterations // CHECK
-    return counts, 4 * solves + chunks, (3 + SMALL) * 4 * solves + 4 * chunks
+    return (counts, 4 * solves + chunks,
+            (2 * 8 + (2 + SMALL) * 4) * solves + 4 * chunks)
 
 
 def _push(A, b):
@@ -338,8 +409,8 @@ def _push(A, b):
         A, b, method="forward-push", raise_on_fail=False))
     chunks = r.iterations // CHECK
     assert chunks >= 2
-    # the initial residual, one a chunk, x
-    return counts, 1 + chunks + 1, (1 + chunks) * 4 + SMALL * 4
+    # the initial residual with b's float64 norm, one a chunk, x
+    return counts, 1 + chunks + 1, 2 * 8 + chunks * 4 + SMALL * 4
 
 
 def _random_walk(A, b):
