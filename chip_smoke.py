@@ -17,6 +17,11 @@ Run from the root of a checkout, on a machine with one CUDA card.  Phases
      csr_spmm on rows of at most SPMV_LONG_ROW entries;
   4. the main path: sublinear_tpu_torch.solve(A, b, method="neumann",
      epsilon=1e-6) at that size, with the kernels' launch and step counts;
+     then the matrix's CUDA graphs: the second solve captures them and the
+     third, profiled, must replay them, launch as many csr_spmv and
+     neumann_chain kernels as the profiler names, give the first (eager)
+     solve's answer bit for bit and agree with the same solve on the CPU
+     within KERNEL_RTOL;
   5. the bench-shaped verified solve neumann_chain(inv_d * b, 12, "norm"),
      timed per solve against the plain version, and the products of its
      12th step against csr_spmv bit for bit;
@@ -489,6 +494,54 @@ def profile_solve(torch, fn, path):
           flush=True)
     for t, count, key in by_name[:12]:
         print(f"  {t:10.1f} us  x{count:<4d} {key[:90]}", flush=True)
+
+
+def check_replayed_solve(torch, slt, K, A, b, eager, label):
+    """The matrix's later solves replay the Neumann driver's CUDA graphs
+    (its first, ``eager``, ran eagerly): the second captures them, and the
+    third, profiled, must replay (``neumann_graph_chunks``), launch the
+    kernels the profiler names as many times as the launch counts say, give
+    ``eager``'s answer bit for bit, and agree with the same solve on the
+    CPU, where the plain versions of the kernels run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sublinear_tpu_torch import tracing
+
+    slt.solve(A, b, method="neumann", epsilon=1e-6)
+    reset(K)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r = slt.solve(A, b, method="neumann", epsilon=1e-6)
+        torch.cuda.synchronize()
+    chunks = tracing.counters().get("neumann_graph_chunks", 0)
+    tracing.reset()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    traced = {"csr_spmv": sum("csr_spmv_kernel" in n for n in names),
+              "neumann_step": sum("neumann_chain_kernel" in n for n in names)}
+    counted = {k: K.LAUNCHES[k] for k in traced}
+    print(f"{label} replayed solve: graph chunks {chunks}, launches traced "
+          f"{traced} counted {counted}", flush=True)
+    if not chunks:
+        raise RuntimeError(f"{label}: the solve replayed no CUDA graph")
+    if traced != counted or not all(traced.values()):
+        raise RuntimeError(f"{label}: the replay's kernels {traced} are not "
+                           f"its launch counts {counted}")
+    if not (np.array_equal(r.solution, eager.solution)
+            and (r.iterations, r.residual) == (eager.iterations,
+                                               eager.residual)):
+        raise RuntimeError(f"{label}: the replayed solve differs from the "
+                           f"eager one")
+    plain = slt.solve(slt.Matrix(A.csr, device="cpu"), b, method="neumann",
+                      epsilon=1e-6)
+    err = rel_err(torch.as_tensor(r.solution), torch.as_tensor(plain.solution))
+    print(f"{label} replayed vs plain on the CPU: max rel err {err:.3e}, "
+          f"iterations {r.iterations} | {plain.iterations}", flush=True)
+    if not (err <= KERNEL_RTOL and plain.converged):
+        raise RuntimeError(f"{label}: the replayed solve is {err} from the "
+                           f"plain one")
 
 
 def sparse_csr(torch, A, dev):
@@ -2692,6 +2745,7 @@ def main() -> int:
     print(f"iterations={r_main.iterations} residual={r_main.residual:.3e} "
           f"host f64 rel residual={rel:.3e} launches={launches} steps="
           f"{K.STEPS}", flush=True)
+    check_replayed_solve(torch, slt, K, A, b, r_main, f"n={N_MAIN}")
     warm = warm_ms(torch, lambda: slt.solve(A, b, method="neumann",
                                             epsilon=1e-6), 5)
     print(f"warm solve ms (CUDA events, 5 runs): "

@@ -4,10 +4,10 @@ float32 compute by default, as in the JAX package.  Dense float32 products
 run in full float32 (no TF32), so they match the JAX package's
 ``Precision.HIGHEST`` contractions.
 
-``to_device`` puts a host array on the device, ``to_host`` reads a tensor
-back and ``host_float`` reads one number: the library's crossings go
-through them, so the tracing counters (``h2d_bytes``, ``d2h_bytes``,
-``host_syncs``) see every one.  ``parallel/sharded.py`` counts its own
+``to_device`` puts a host array on the device (``copy_to_device`` into a
+tensor already there), ``to_host`` reads a tensor back and ``host_float``
+reads one number: the library's crossings go through them, so the tracing
+counters (``h2d_bytes``, ``d2h_bytes``, ``host_syncs``) see every one.  ``parallel/sharded.py`` counts its own
 batch copies, and ``models/`` and ``interfaces/`` read back on their own.
 The port pads no domain: a vector of an (n, m) operator has n or m
 entries.
@@ -86,11 +86,25 @@ def to_device(a, dtype: torch.dtype, dev=None) -> torch.Tensor:
     converting).  On the CPU the tensor may share ``a``'s memory.  Span
     ``slt.to_device``; counts the tensor's bytes in ``h2d_bytes``."""
     with tracing.span("slt.to_device"):
-        np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
-        host = np.ascontiguousarray(a, dtype=np_dtype)
-        t = torch.from_numpy(host).to(device(dev))
+        t = torch.from_numpy(_host_array(a, dtype)).to(device(dev))
         tracing.count("h2d_bytes", t.numel() * t.element_size())
         return t
+
+
+def copy_to_device(a, out: torch.Tensor) -> torch.Tensor:
+    """``to_device`` into the existing tensor ``out``: the host array ``a``
+    (``out.numel()`` numbers), converted by NumPy to ``out``'s dtype, is
+    copied into ``out``, and ``out`` is returned.  Span ``slt.to_device``;
+    counts ``out``'s bytes in ``h2d_bytes``."""
+    with tracing.span("slt.to_device"):
+        out.copy_(torch.from_numpy(_host_array(a, out.dtype)).reshape(out.shape))
+        tracing.count("h2d_bytes", out.numel() * out.element_size())
+        return out
+
+
+def _host_array(a, dtype: torch.dtype) -> np.ndarray:
+    """``a`` as a contiguous NumPy array of the NumPy twin of ``dtype``."""
+    return np.ascontiguousarray(a, dtype=torch.empty(0, dtype=dtype).numpy().dtype)
 
 
 def to_host(t: torch.Tensor, dtype=None) -> np.ndarray:

@@ -42,7 +42,8 @@ class Matrix:
     """Square-or-rectangular sparse/dense matrix with device-operator cache.
 
     What is derived from ``csr`` (the operators, the DIA probe, the
-    transpose, PageRank's P^T) is built once and kept on the object, so
+    transpose, PageRank's P^T, the Neumann solver's CUDA graphs) is built
+    once and kept on the object, so
     ``csr`` must not be mutated after construction."""
 
     def __init__(self, csr: CSR, prefer: Optional[str] = None, device=None):
@@ -56,6 +57,8 @@ class Matrix:
         self._transpose_csr: Optional[CSR] = None
         # graph/pagerank.py's (P^T operator, dangling mask) per dtype
         self._pagerank: dict = {}
+        # solvers/neumann.py's CUDA graphs per (dtype, check_every)
+        self._neumann_graphs: dict = {}
         # serving layers share Matrix objects across threads
         self._lock = threading.Lock()
         # process-unique id for external caches (id() is reused after GC)

@@ -31,11 +31,17 @@ tensor takes the plain version; a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches (one per chain for the two chains),
 ``STEPS`` the steps the chains ran.  While a profiler records,
 ``neumann_chain`` also counts each chain and its steps on either device
-(``tracing``'s ``neumann_chain_calls`` and ``neumann_chain_steps``).
+(``tracing``'s ``neumann_chain_calls`` and ``neumann_chain_steps``).  A
+CUDA graph's capture launches nothing and its replay runs no wrapper: inside
+``recording()`` the wrappers list their launches instead of counting them,
+and ``replayed(list)`` counts them at each replay (``solvers/neumann.py``).
 The wrappers check an operator's own arrays once (cached against their data
 pointers) and each call's vectors every call.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -239,6 +245,48 @@ def spmv_row_blocks(indptr, tile: int = SPMV_TILE, rows: int = SPMV_ROWS,
     return np.asarray(starts, dtype=np.int32)
 
 
+_recorder = threading.local()  # .log: the list ``recording`` fills
+
+
+def _launched(name: str, steps: int = 0) -> None:
+    """Count one launch of kernel ``name`` (a chain of ``steps`` steps) in
+    ``LAUNCHES`` and ``STEPS``, and a Neumann chain in ``tracing`` too;
+    while this thread records (``recording``), list it there instead."""
+    log = getattr(_recorder, "log", None)
+    if log is not None:
+        log.append((name, steps))
+        return
+    LAUNCHES[name] += 1
+    if steps:
+        STEPS[name] += steps
+    if name == "neumann_step":
+        _count_chain(steps)
+
+
+def _count_chain(steps: int) -> None:
+    tracing.count("neumann_chain_calls")
+    tracing.count("neumann_chain_steps", steps)
+
+
+@contextlib.contextmanager
+def recording():
+    """While open, the kernels this thread's wrappers launch are listed in
+    the list it yields, as ``(name, steps)``, and counted nowhere: a CUDA
+    graph's capture records them without running them."""
+    _recorder.log = log = []
+    try:
+        yield log
+    finally:
+        _recorder.log = None
+
+
+def replayed(log: list) -> None:
+    """Count the launches ``recording`` listed, for one replay of the
+    graph captured while it was open."""
+    for name, steps in log:
+        _launched(name, steps)
+
+
 # ---------------------------------------------------------------- plain
 
 def csr_spmv_plain(op: CsrOperator, x: torch.Tensor, diag=None):
@@ -398,7 +446,7 @@ def csr_spmv(op: CsrOperator, x: torch.Tensor, diag=None) -> torch.Tensor:
     blocks = op.row_blocks
     lib = library("csr_kernels")
     y = x.new_empty(n)
-    LAUNCHES["csr_spmv"] += 1
+    _launched("csr_spmv")
     rc = lib.slt_csr_spmv(device, blocks.numel() - 1, blocks.data_ptr(),
                           indptr, indices, vals, x.data_ptr(), ptr(diag),
                           y.data_ptr(), stream_of(x))
@@ -426,7 +474,7 @@ def csr_spmm(op: CsrOperator, X: torch.Tensor, diag=None,
         op, X=(X, (m, B)), diag=(diag, n))
     lib = library("spmm_kernels")
     Y = X.new_empty((n, B))
-    LAUNCHES["csr_spmm"] += 1
+    _launched("csr_spmm")
     rc = lib.slt_csr_spmm(device, SPMM_MODES[mode], n, m, B, indptr,
                           indices, vals, X.data_ptr(), ptr(diag),
                           Y.data_ptr(), stream_of(X))
@@ -445,9 +493,8 @@ def neumann_chain(op: CsrOperator, term0: torch.Tensor, iters: int,
     if with_residual not in (False, True, "norm"):
         raise ValueError(f"with_residual must be False, True or 'norm', "
                          f"got {with_residual!r}")
-    tracing.count("neumann_chain_calls")
-    tracing.count("neumann_chain_steps", iters)
     if term0.is_cpu:
+        _count_chain(iters)
         return neumann_chain_plain(op, term0, iters, with_residual)
 
     n = op.shape[0]
@@ -463,8 +510,7 @@ def neumann_chain(op: CsrOperator, term0: torch.Tensor, iters: int,
     res = torch.empty_like(term0) if with_residual and not norm else None
     res2 = (torch.zeros((), dtype=torch.float64, device=term0.device)
             if norm else None)
-    LAUNCHES["neumann_step"] += 1
-    STEPS["neumann_step"] += iters
+    _launched("neumann_step", iters)
     rc = lib.slt_neumann_chain(
         device, blocks.numel() - 1, blocks.data_ptr(), indptr, indices, vals,
         ptr(op.inv_diag), ptr(term0), ptr(bufs[0]), ptr(bufs[1]), ptr(acc),
@@ -504,8 +550,7 @@ def cg_chain(op: CsrOperator, x, r, p, rz, iters: int, *, q_out=None):
     # step j: p.q in slot 2j+1, r.z in 2j+2; r.r in the last slot
     scal = torch.zeros(2 * iters + 2, dtype=torch.float64, device=x.device)
     out = torch.empty(2, dtype=torch.float32, device=x.device)
-    LAUNCHES["cg_step"] += 1
-    STEPS["cg_step"] += iters
+    _launched("cg_step", iters)
     rc = lib.slt_cg_chain(
         device, n, blocks.numel() - 1, blocks.data_ptr(), indptr, indices,
         vals, *map(ptr, (op.diag, op.inv_diag, x, r, p, q, scal, rz)), iters,

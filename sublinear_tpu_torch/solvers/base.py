@@ -96,15 +96,29 @@ def prepare(matrix: Matrix, b, options: SolverOptions):
     goes up in float64 and the device makes its copy in the operator's
     dtype and its norm (a ``Threshold``): no NumPy pass runs over it."""
     op = matrix.op(options.dtype)
+    b64 = to_device(host_rhs(matrix, b), torch.float64, matrix.device)
+    return (op, *prepare_on_device(matrix, op, b64, options))
+
+
+def prepare_on_device(matrix: Matrix, op, b64: torch.Tensor,
+                      options: SolverOptions):
+    """``prepare``'s work after b's upload, from ``b64``, b in float64 on
+    the device: ``(b_dev, x0_dev, threshold)``.  With no ``options.x0`` it
+    reads nothing from the host, so a CUDA graph can record it."""
+    b_dev = b64.to(op.dtype)
+    x0_dev = (matrix.pad_vector(options.x0, options.dtype)
+              if options.x0 is not None else torch.zeros_like(b_dev))
+    return b_dev, x0_dev, threshold_for(b64, options)
+
+
+def host_rhs(matrix: Matrix, b) -> np.ndarray:
+    """b as a flat float64 host array, after raising unless it has one
+    entry per row of ``matrix``."""
     b = np.asarray(b, dtype=np.float64).reshape(-1)
     if b.size != matrix.shape[0]:
         raise DimensionMismatchError(
             f"vector length {b.size} != matrix dim {matrix.shape[0]}")
-    b64 = to_device(b, torch.float64, matrix.device)
-    b_dev = b64.to(op.dtype)
-    x0_dev = (matrix.pad_vector(options.x0, options.dtype)
-              if options.x0 is not None else torch.zeros_like(b_dev))
-    return op, b_dev, x0_dev, threshold_for(b64, options)
+    return b
 
 
 def chained(op, check_every: int) -> bool:
@@ -240,15 +254,17 @@ def neumann_truncation_bounds(matrix: Matrix, terms: int, term_norm: float, rhs_
 
 class SolveTimer:
     """Wall time of a block of work on ``device``: on a CUDA device it
-    synchronises that device before reading the clock on entry and on
-    exit."""
+    waits for the current stream of that device, where the solvers issue
+    their work, before reading the clock on entry and on exit.  Not the
+    whole device: synchronising a device while another thread captures a
+    CUDA graph on it is an error (``solvers/neumann.py``)."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def __enter__(self):
         self._sync()

@@ -28,7 +28,12 @@ names start with ``slt.``.  Counters:
               (``solvers/cg.py::_cg_chain_run``)
   neumann_chain_calls  chains of Neumann steps run as one
               ``op.neumann_chain`` call (``ops/csr_spmv.py::neumann_chain``)
-  neumann_chain_steps  the steps of those chains
+  neumann_chain_steps  the steps of those chains (a replay of a CUDA
+              graph counts the chains its capture listed in both:
+              ``ops/csr_spmv.py::replayed``)
+  neumann_graph_captures  captures of the Neumann solver's CUDA graphs
+              (``solvers/neumann.py::_Replay``)
+  neumann_graph_chunks    chains that ran inside a replay of those graphs
   pagerank_transition_builds  PageRank calls that built P^T's operator
               and dangling mask (``graph/pagerank.py::_transition_inputs``)
   pagerank_transition_hits    PageRank calls that found them built on
